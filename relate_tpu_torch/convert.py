@@ -1,0 +1,69 @@
+"""State carried across from the JAX package, as NumPy arrays.
+
+The artifact store (``chunk_<c>.npz``, ``paint_<w>.npz``, ``trees_<w>.anc``,
+``muts_<w>.mut``) is byte-compatible between the two packages, so a store
+written by one is read by the other without this module. What it adds is
+the in-memory state: a painting checkpoint, a target plan and a window
+posterior, each read out of the JAX objects as NumPy arrays by the caller
+(this module imports nothing of the JAX package) and rebuilt as the port's
+objects on a device.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.painting import Checkpoint, PaintOutput, TargetPlan
+from .utils.devmem import resolve_device
+
+
+def _tensor(a, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=dtype, order="C")).to(device)
+
+
+def checkpoint_from_numpy(alpha, ls_alpha, bsb, beta, ls_beta, bse,
+                          device=None) -> Checkpoint:
+    """The port's ``Checkpoint`` from the fields of
+    ``relate_tpu.core.painting.Checkpoint``: ``alpha``/``beta`` (B, N)
+    float32, ``ls_alpha``/``ls_beta`` (B,) float64, ``bsb``/``bse`` (B,)
+    int64. The slabs are placed on ``device`` so that a repaint starts
+    from them without another upload."""
+    device = resolve_device(device)
+    alpha = np.ascontiguousarray(alpha, dtype=np.float32)
+    beta = np.ascontiguousarray(beta, dtype=np.float32)
+    return Checkpoint(
+        alpha=alpha, ls_alpha=np.asarray(ls_alpha, np.float64),
+        bsb=np.asarray(bsb, np.int64), beta=beta,
+        ls_beta=np.asarray(ls_beta, np.float64),
+        bse=np.asarray(bse, np.int64),
+        a0_dev=torch.from_numpy(alpha).to(device),
+        be_dev=torch.from_numpy(beta).to(device))
+
+
+def target_plan_from_numpy(targets, idx, seqk, D, pfac=None, nxt=None,
+                           kmask=None, device=None) -> TargetPlan:
+    """The port's device ``TargetPlan``. ``idx``/``seqk`` are (B, Dmax);
+    the JAX repaint leaves ``pfac``/``nxt``/``kmask`` out of its plan and
+    so may the caller (the section builder reads ``idx[:, 0]``, ``targets``
+    and ``D`` only)."""
+    device = resolve_device(device)
+    opt = lambda a, dt: None if a is None else _tensor(a, dt, device)  # noqa: E731
+    return TargetPlan(
+        targets=np.asarray(targets, np.int32),
+        idx=_tensor(idx, np.int32, device),
+        seqk=_tensor(seqk, np.uint8, device),
+        pfac=opt(pfac, np.float32), nxt=opt(nxt, np.float32),
+        D=np.asarray(D, np.int32), kmask=opt(kmask, np.float32))
+
+
+def paint_output_from_numpy(topology, logscale, ls_base, targets, idx, seqk,
+                            D, device=None) -> PaintOutput:
+    """The port's ``PaintOutput`` from a JAX one: ``topology`` (Dmax, B, N)
+    and ``logscale`` (Dmax, B) in the public layout both packages share
+    (any step-axis padding of the JAX arrays is kept: rows past D[b] are
+    never read), ``ls_base`` (B,) float64, and the plan arrays."""
+    device = resolve_device(device)
+    plan = target_plan_from_numpy(targets, idx, seqk, D, device=device)
+    return PaintOutput(topology=_tensor(topology, np.float32, device),
+                       logscale=_tensor(logscale, np.float32, device),
+                       ls_base=np.asarray(ls_base, np.float64), plan=plan)

@@ -1,0 +1,254 @@
+// Dense MinMatch merge scan for sm_90a (N <= 1024).
+//
+// Replaces the TPU kernel relate_tpu/ops/merge_scan.py:_kernel. The scan is a
+// chain of N-1 steps; each step reduces over the whole live matrix, picks one
+// pair and updates one row and one column, so the steps cannot overlap. Each
+// step is three small launches on the caller's stream (no host round trip:
+// the chosen pair never leaves the card):
+//   row_min    one block per row: masked minima of d and dcf over the active
+//              off-diagonal entries, plus the thresholds
+//   pair_best  one block per row a: for every active b the two band tests,
+//              the score, the tie hash; keeps the row's best mutual candidate
+//              and its best fallback candidate
+//   merge_step one block: reduces the per-row candidates, then updates row j,
+//              then column j (which reads the updated row), sizes, labels,
+//              clade rows and the merge lists
+// d is not symmetric, so its transpose dt is kept beside it (and dcft beside
+// dcf): pair_best then reads d[b][a] as dt[a][b], contiguous like the rest.
+//
+// Bound: latency of the 3(N-1) dependent launches. The byte bound (every
+// live entry of d, dt, dcf, dcft read once per step) is loose: at N = 1024
+// the four matrices are 16 MB and stay in the L2 cache.
+//
+// The merge list is discrete: a 1-ulp difference in w*x + (1-w)*y can flip a
+// later merge. This file is built with -fmad=false so that the expression
+// rounds as two products and a sum, like the plain PyTorch version and the
+// JAX kernel. The hash is 32-bit wrap-around arithmetic with logical shifts
+// (uint32_t). INF is 3.0e38, not infinity, as in the JAX kernel.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float INF = 3.0e38f;
+constexpr int ROW_THREADS = 256;
+constexpr int STEP_THREADS = 1024;
+
+struct Cand {
+    float score;
+    float tie;
+    int flat;
+};
+
+__device__ __forceinline__ bool better(const Cand& x, const Cand& y) {
+    if (x.score != y.score) return x.score < y.score;
+    if (x.tie != y.tie) return x.tie < y.tie;
+    return x.flat < y.flat;
+}
+
+__device__ __forceinline__ Cand shfl_cand(const Cand& c, int o) {
+    Cand r;
+    r.score = __shfl_xor_sync(0xffffffffu, c.score, o);
+    r.tie = __shfl_xor_sync(0xffffffffu, c.tie, o);
+    r.flat = __shfl_xor_sync(0xffffffffu, c.flat, o);
+    return r;
+}
+
+// Best candidate of the block, valid in thread 0. `buf` has one slot per warp.
+__device__ __forceinline__ Cand block_best(Cand c, Cand* buf) {
+    for (int o = 16; o > 0; o >>= 1) {
+        const Cand r = shfl_cand(c, o);
+        if (better(r, c)) c = r;
+    }
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (lane == 0) buf[warp] = c;
+    __syncthreads();
+    if (warp == 0) {
+        const int nw = (blockDim.x + 31) >> 5;
+        c = lane < nw ? buf[lane] : Cand{INF, INF, 0x7fffffff};
+        for (int o = 16; o > 0; o >>= 1) {
+            const Cand r = shfl_cand(c, o);
+            if (better(r, c)) c = r;
+        }
+    }
+    return c;
+}
+
+__device__ __forceinline__ float block_min(float v, float* buf) {
+    for (int o = 16; o > 0; o >>= 1)
+        v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (lane == 0) buf[warp] = v;
+    __syncthreads();
+    float m = INF;
+    const int nw = (blockDim.x + 31) >> 5;
+    for (int w = 0; w < nw; ++w) m = fminf(m, buf[w]);
+    return m;
+}
+
+__global__ void __launch_bounds__(ROW_THREADS)
+row_min_kernel(const float* __restrict__ d, const float* __restrict__ dcf,
+               const int* __restrict__ active, float* __restrict__ mv,
+               float* __restrict__ mvcf, int N, float threshold,
+               float threshold_cf) {
+    __shared__ float buf0[ROW_THREADS / 32], buf1[ROW_THREADS / 32];
+    const int a = blockIdx.x;
+    if (!active[a]) return;
+    float m = INF, mc = INF;
+    const size_t ra = (size_t)a * N;
+    for (int b = threadIdx.x; b < N; b += ROW_THREADS) {
+        if (b != a && active[b]) {
+            m = fminf(m, d[ra + b]);
+            mc = fminf(mc, dcf[ra + b]);
+        }
+    }
+    m = block_min(m, buf0);
+    mc = block_min(mc, buf1);
+    if (threadIdx.x == 0) {
+        mv[a] = m + threshold;
+        mvcf[a] = mc + threshold_cf;
+    }
+}
+
+__global__ void __launch_bounds__(ROW_THREADS)
+pair_best_kernel(const float* __restrict__ d, const float* __restrict__ dt,
+                 const float* __restrict__ dcf, const float* __restrict__ dcft,
+                 const int* __restrict__ active, const float* __restrict__ mv,
+                 const float* __restrict__ mvcf, Cand* __restrict__ best_mut,
+                 Cand* __restrict__ best_sym, int N, int use_cf, uint32_t seed,
+                 uint32_t t) {
+    __shared__ Cand buf0[ROW_THREADS / 32], buf1[ROW_THREADS / 32];
+    const int a = blockIdx.x;
+    Cand bm{INF, INF, 0x7fffffff}, bs{INF, INF, 0x7fffffff};
+    if (!active[a]) {
+        if (threadIdx.x == 0) { best_mut[a] = bm; best_sym[a] = bs; }
+        return;
+    }
+    const size_t ra = (size_t)a * N;
+    const float mva = mv[a], mvcfa = mvcf[a];
+    const uint32_t mix = seed * 747796405u + t * 374761393u;
+    for (int b = threadIdx.x; b < N; b += ROW_THREADS) {
+        if (b == a || !active[b]) continue;
+        const float dab = d[ra + b], dba = dt[ra + b];
+        const float sym = dab + dba;
+        const uint32_t lo = (uint32_t)min(a, b), hi = (uint32_t)max(a, b);
+        uint32_t h = lo * 2654435769u + hi * 2246822507u;
+        h ^= mix;
+        h ^= h >> 15;
+        h *= 739213477u;
+        h ^= h >> 12;
+        Cand c;
+        c.tie = (float)(h & 0x7FFFFFu);
+        c.flat = a * N + b;
+        c.score = sym;
+        if (better(c, bs)) bs = c;
+        const bool mutual = (dab <= mva) && (dba <= mv[b]);
+        if (mutual) {
+            const bool cfmut = (dcf[ra + b] <= mvcfa) && (dcft[ra + b] <= mvcf[b]);
+            c.score = (use_cf && cfmut) ? 0.0f : sym;
+            if (better(c, bm)) bm = c;
+        }
+    }
+    bm = block_best(bm, buf0);
+    bs = block_best(bs, buf1);
+    if (threadIdx.x == 0) { best_mut[a] = bm; best_sym[a] = bs; }
+}
+
+__global__ void __launch_bounds__(STEP_THREADS)
+merge_step_kernel(float* __restrict__ d, float* __restrict__ dt,
+                  float* __restrict__ dcf, float* __restrict__ dcft,
+                  int* __restrict__ active, float* __restrict__ sizes,
+                  int* __restrict__ conv, float* __restrict__ csets,
+                  const Cand* __restrict__ best_mut,
+                  const Cand* __restrict__ best_sym, int* __restrict__ cis,
+                  int* __restrict__ cjs, float* __restrict__ clades, int N,
+                  int t) {
+    __shared__ Cand buf0[STEP_THREADS / 32], buf1[STEP_THREADS / 32];
+    __shared__ int s_i, s_j;
+    __shared__ float s_w;
+    const int tid = threadIdx.x;
+
+    Cand bm{INF, INF, 0x7fffffff}, bs{INF, INF, 0x7fffffff};
+    for (int a = tid; a < N; a += STEP_THREADS) {
+        const Cand m = best_mut[a], s = best_sym[a];
+        if (better(m, bm)) bm = m;
+        if (better(s, bs)) bs = s;
+    }
+    bm = block_best(bm, buf0);
+    bs = block_best(bs, buf1);
+    if (tid == 0) {
+        // no mutual candidate anywhere: fall back to the symmetric argmin
+        const Cand c = (bm.score < INF) ? bm : bs;
+        const int a = c.flat / N, b = c.flat % N;
+        const int i = min(a, b), j = max(a, b);
+        const float si = sizes[i], sj = sizes[j];
+        s_i = i;
+        s_j = j;
+        s_w = si / (si + sj);
+        cis[t] = conv[i];
+        cjs[t] = conv[j];
+        sizes[j] = si + sj;
+        conv[j] = N + t;
+        active[i] = 0;
+    }
+    __syncthreads();
+    const int i = s_i, j = s_j;
+    const float w = s_w, w1 = 1.0f - w;
+    const size_t ri = (size_t)i * N, rj = (size_t)j * N;
+
+    // row j of every matrix, and the clade row
+    for (int c = tid; c < N; c += STEP_THREADS) {
+        d[rj + c] = w * d[ri + c] + w1 * d[rj + c];
+        dt[rj + c] = w * dt[ri + c] + w1 * dt[rj + c];
+        dcf[rj + c] = w * dcf[ri + c] + w1 * dcf[rj + c];
+        dcft[rj + c] = w * dcft[ri + c] + w1 * dcft[rj + c];
+        const float cl = csets[ri + c] + csets[rj + c];
+        csets[rj + c] = cl;
+        clades[(size_t)t * N + c] = cl;
+    }
+    __syncthreads();
+    // column j reads the updated row j (entries (j, i) and (j, j))
+    for (int r = tid; r < N; r += STEP_THREADS) {
+        const size_t rr = (size_t)r * N;
+        d[rr + j] = w * d[rr + i] + w1 * d[rr + j];
+        dt[rr + j] = w * dt[rr + i] + w1 * dt[rr + j];
+        dcf[rr + j] = w * dcf[rr + i] + w1 * dcf[rr + j];
+        dcft[rr + j] = w * dcft[rr + i] + w1 * dcft[rr + j];
+    }
+}
+
+}  // namespace
+
+// d, dt, dcf, dcft: (N, N) float32 working copies, updated in place.
+// active (N) int32 = 1, sizes (N) float32 = 1, conv (N) int32 = arange,
+// csets (N, N) float32 = identity, mv/mvcf (N) float32 scratch,
+// best (2, N) scratch of 12-byte records. Outputs cis, cjs (N-1) int32 and
+// clades (N-1, N) float32.
+extern "C" int merge_scan_launch(void* d, void* dt, void* dcf, void* dcft,
+                                 void* active, void* sizes, void* conv,
+                                 void* csets, void* mv, void* mvcf, void* best,
+                                 void* cis, void* cjs, void* clades, int N,
+                                 int use_cf, float threshold,
+                                 float threshold_cf, int seed, void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    Cand* best_mut = (Cand*)best;
+    Cand* best_sym = best_mut + N;
+    for (int t = 0; t < N - 1; ++t) {
+        row_min_kernel<<<N, ROW_THREADS, 0, st>>>(
+            (const float*)d, (const float*)dcf, (const int*)active,
+            (float*)mv, (float*)mvcf, N, threshold, threshold_cf);
+        pair_best_kernel<<<N, ROW_THREADS, 0, st>>>(
+            (const float*)d, (const float*)dt, (const float*)dcf,
+            (const float*)dcft, (const int*)active, (const float*)mv,
+            (const float*)mvcf, best_mut, best_sym, N, use_cf,
+            (uint32_t)seed, (uint32_t)t);
+        merge_step_kernel<<<1, STEP_THREADS, 0, st>>>(
+            (float*)d, (float*)dt, (float*)dcf, (float*)dcft, (int*)active,
+            (float*)sizes, (int*)conv, (float*)csets, best_mut, best_sym,
+            (int*)cis, (int*)cjs, (float*)clades, N, t);
+        const cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+    }
+    return (int)cudaGetLastError();
+}

@@ -1,0 +1,213 @@
+"""Readers/writers for Relate's .anc/.mut tree-sequence formats.
+
+Formats (behavioral reference):
+- binary .anc (anc.cpp:1104-1167): header ``bool has_sample_ages, u32 N,
+  [f64 ages], u32 num_trees``; per tree ``i32 pos`` then per node
+  ``i32 parent, f64 branch_length, f32 num_events, i32 SNP_begin,
+  i32 SNP_end``.
+- short .mut (mutations.cpp:511-545): header
+  ``tree_index;branch_index;is_mapping;is_flipped;age_of_mutation`` then
+  ``tree;b1[ b2...];is_not_mapping;flipped;age_begin;age_end;``.
+
+The text ``.anc`` and the final ``.mut`` belong to Finalize and are not in
+this package yet.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import struct
+from typing import List
+
+import numpy as np
+
+from ..core.topology import MutationRecord
+from ..core.trees import (AncesTree, MarginalTree, Tree,
+                          children_from_parent_batch)
+from .haps import smart_open
+
+
+# ---------------------------------------------------------------------------
+# binary .anc
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def atomic_write(path: str, mode: str = "w"):
+    """Write to a same-directory temp file and ``os.replace`` into place on
+    success: a reader polling for ``path`` can never observe a half-written artifact. POSIX
+    rename is atomic within a filesystem; NFS renames are atomic on the
+    server, which is exactly the shared-store case."""
+    tmp = f"{path}.tmp.{os.getpid()}"
+    f = open(tmp, mode)
+    try:
+        yield f
+        f.close()
+        os.replace(tmp, path)
+    except BaseException:
+        f.close()
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
+def write_anc_bin(path: str, anc: AncesTree):
+    # per-tree structured-array dump ('<' packed layout, matching the C++
+    # packed record stream) — a per-node struct.pack loop costs ~100x at
+    # 10^4-tree chunks
+    rec = np.dtype([("parent", "<i4"), ("bl", "<f8"), ("ne", "<f4"),
+                    ("sb", "<i4"), ("se", "<i4")])
+    with atomic_write(path, "wb") as f:
+        has_ages = anc.sample_ages is not None and len(anc.sample_ages) > 0
+        f.write(struct.pack("?", has_ages))
+        f.write(struct.pack("I", anc.N))
+        if has_ages:
+            f.write(np.asarray(anc.sample_ages, np.float64).tobytes())
+        f.write(struct.pack("I", len(anc.seq)))
+        if not anc.seq:
+            return
+        # one (T,)-records dump instead of a per-tree pack loop
+        M = anc.seq[0].tree.num_nodes
+        trec = np.dtype([("pos", "<i4"), ("nodes", rec, (M,))])
+        arr = np.empty(len(anc.seq), dtype=trec)
+        nodes = arr["nodes"]
+        arr["pos"] = [mt.pos for mt in anc.seq]
+        # stack per-field first (contiguous), then one strided field copy
+        # each — per-tree strided assignment costs ~10x
+        nodes["parent"] = np.stack([mt.tree.parent for mt in anc.seq])
+        nodes["bl"] = np.stack([mt.tree.branch_length for mt in anc.seq])
+        nodes["ne"] = np.stack([mt.tree.num_events for mt in anc.seq])
+        nodes["sb"] = np.stack([mt.tree.SNP_begin for mt in anc.seq])
+        nodes["se"] = np.stack([mt.tree.SNP_end for mt in anc.seq])
+        f.write(arr.tobytes())
+
+
+def read_anc_bin(path: str) -> AncesTree:
+    with open(path, "rb") as f:
+        (has_ages,) = struct.unpack("?", f.read(1))
+        (N,) = struct.unpack("I", f.read(4))
+        ages = None
+        if has_ages:
+            ages = np.frombuffer(f.read(8 * N), dtype=np.float64).copy()
+        (num_trees,) = struct.unpack("I", f.read(4))
+        M = 2 * N - 1
+        rec = np.dtype([("parent", "<i4"), ("bl", "<f8"), ("ne", "<f4"),
+                        ("sb", "<i4"), ("se", "<i4")])
+        trec = np.dtype([("pos", "<i4"), ("nodes", rec, (M,))])
+        # bulk-read every tree record, then batch-decode: contiguous
+        # column copies + one batched children recovery (the per-tree
+        # loop cost ~0.25 ms/tree, dominated by children_from_parent)
+        arr = np.frombuffer(f.read(trec.itemsize * num_trees), dtype=trec,
+                            count=num_trees)
+        nodes = arr["nodes"]
+        pos_v = arr["pos"]
+        parent_b = np.ascontiguousarray(nodes["parent"])
+        bl_b = np.ascontiguousarray(nodes["bl"])
+        ne_b = np.ascontiguousarray(nodes["ne"])
+        sb_b = np.ascontiguousarray(nodes["sb"])
+        se_b = np.ascontiguousarray(nodes["se"])
+        cl_b, cr_b = children_from_parent_batch(parent_b)
+        seq = []
+        for t in range(num_trees):
+            tr = Tree(parent=parent_b[t], child_left=cl_b[t],
+                      child_right=cr_b[t], branch_length=bl_b[t],
+                      num_events=ne_b[t], SNP_begin=sb_b[t],
+                      SNP_end=se_b[t])
+            seq.append(MarginalTree(pos=int(pos_v[t]), tree=tr))
+    return AncesTree(N=N, seq=seq, sample_ages=ages)
+
+
+# ---------------------------------------------------------------------------
+# .mut (short format)
+# ---------------------------------------------------------------------------
+
+def write_mut_short(path: str, muts: List[MutationRecord]):
+    with atomic_write(path, "w") as f:
+        f.write("tree_index;branch_index;is_mapping;is_flipped;"
+                "age_of_mutation\n")
+        for m in muts:
+            br = " ".join(str(b) for b in m.branch)
+            nm = 1 if len(m.branch) > 1 else 0
+            f.write(f"{m.tree};{br};{nm};{int(m.flipped)};"
+                    f"{_fmt_g(m.age_begin)};{_fmt_g(m.age_end)};\n")
+
+
+def _fmt_g(x: float) -> str:
+    """C++ default ostream float formatting (6 significant digits)."""
+    s = f"{x:g}"
+    return s
+
+
+def read_mut_short(path: str) -> List[MutationRecord]:
+    out: List[MutationRecord] = []
+    with smart_open(path) as f:
+        next(f)
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            parts = line.split(";")
+            branch = [int(x) for x in parts[1].split()] if parts[1] else []
+            out.append(MutationRecord(
+                tree=int(parts[0]), branch=branch,
+                flipped=bool(int(parts[3])),
+                age_begin=float(parts[4]), age_end=float(parts[5])))
+    return out
+
+
+def get_age(anc: AncesTree, muts: List[MutationRecord]):
+    """Fill age_begin/age_end from the tree (mutations.cpp:27-60):
+    age_begin = age of the branch's lower node (sum of branch lengths down
+    its left-child chain to a leaf, plus that leaf's sample age);
+    age_end adds the branch's own length.
+
+    Vectorized: one (T, M) fixed-point pass computes every node's
+    left-chain age and left-descendant leaf at once, then each mutation is
+    an O(1) lookup (the per-SNP Python chain walk cost seconds at
+    10^4-tree chunks)."""
+    if not anc.seq:
+        return
+    M = anc.seq[0].tree.num_nodes
+    ages = anc.sample_ages
+    has_ages = ages is not None and len(ages)
+    bl = np.stack([mt.tree.branch_length for mt in anc.seq])
+    if not bl.any() and not has_ages:
+        # zero-length trees (BuildTopology stage, before the MCMC): every
+        # age is 0; skip the chain walk entirely
+        for m in muts:
+            if len(m.branch) == 1:
+                m.age_begin = 0.0
+                m.age_end = 0.0
+        return
+    cl = np.stack([mt.tree.child_left for mt in anc.seq])
+    age = np.zeros_like(bl)
+    # walker per node: descend the left-child chain, summing each visited
+    # child's branch length; the final walker position is the chain's leaf
+    w = np.broadcast_to(np.arange(M, dtype=np.int64)[None, :],
+                        cl.shape).copy()
+    while True:
+        cw = np.take_along_axis(cl, w, axis=1)
+        act = cw >= 0
+        if not act.any():
+            break
+        sc = np.maximum(cw, 0)
+        age = np.where(act, age + np.take_along_axis(bl, sc, axis=1), age)
+        w = np.where(act, sc, w)
+    leaf = w
+    # gather every single-branch mutation's ages in one vectorized pass,
+    # then assign plain Python floats (numpy-scalar attribute sets cost
+    # ~40 us each at 10^4-mutation chunks)
+    sel = [i for i, m in enumerate(muts) if len(m.branch) == 1]
+    if not sel:
+        return
+    ti = np.asarray([muts[i].tree for i in sel])
+    bi = np.asarray([muts[i].branch[0] for i in sel])
+    a = age[ti, bi]
+    if has_ages:
+        a = a + np.asarray(ages)[leaf[ti, bi]]
+    ae = (a + bl[ti, bi]).tolist()
+    ab = a.tolist()
+    for k, i in enumerate(sel):
+        muts[i].age_begin = ab[k]
+        muts[i].age_end = ae[k]

@@ -1,0 +1,357 @@
+"""Li & Stephens painting sweeps: CUDA kernels and their plain versions.
+
+Counterpart of ``relate_tpu/ops/paint_kernels.py``. The four TPU kernels
+(``fwd_pallas``, ``bwd_pallas``, ``fwd_capture_pallas``,
+``bwd_capture_pallas``) become two CUDA sources, ``csrc/paint_fwd.cu`` and
+``csrc/paint_bwd.cu``, one templated body per direction.
+
+Layout. Sources are contiguous: per-target state is ``(B, N)`` and the
+per-row streams are ``(Dmax, B, N)``, which is also the public layout of
+``PaintOutput.topology`` (the JAX kernels use ``(N, B)`` / ``(Dmax, N, B)``;
+compare with a transpose). Per-target step vectors are ``(B, Dmax)``:
+
+- ``D`` ``(B,)`` int32: number of steps of each target (2 <= D <= Dmax);
+- ``alpha0`` / ``beta_end`` / ``kmask`` ``(B, N)`` float32;
+- ``mism`` ``(Dmax, B, N)`` int8: 1 where the target carries the derived
+  allele at that step and the source does not;
+- ``pfac`` / ``nxt`` ``(B, Dmax)`` float32, UNSHIFTED planner outputs
+  (interval j at column j). The forward row j reads column j-1 and the
+  backward row j column j+1, which is what the JAX kernels receive as the
+  pre-shifted ``pfacm1``/``nxtm1``/``pfacp1``/``nxtp1``;
+- logscale outputs are ``(Dmax, B)`` float32.
+
+What bounds the kernels on the card: memory traffic (1 mismatch byte read
+and 4 to 8 bytes of float32 moved per cell, a handful of flops). The design
+gives every target its own thread block with the state row in shared memory,
+so each stream byte crosses device memory once; rows of one target are a
+dependent chain with one block-wide sum each, and the B blocks in flight
+hide that latency.
+
+A CUDA tensor goes to the kernel or raises; only a CPU tensor takes the
+plain version. ``launches`` counts kernel launches per wrapper.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from . import _build
+
+LOWER_RESCALE = 1e-10
+UPPER_RESCALE = 1e10
+
+launches = {"fwd": 0, "bwd": 0, "fwd_capture": 0, "bwd_capture": 0}
+
+_MODE_POST, _MODE_BETA, _MODE_CAP = 0, 1, 2
+
+
+def _theta_consts(theta: float) -> Tuple[float, float, float]:
+    """(theta, 1-theta, theta/(1-theta)-1), each rounded to float32."""
+    return (float(np.float32(theta)), float(np.float32(1.0 - theta)),
+            float(np.float32(theta / (1.0 - theta) - 1.0)))
+
+
+def _check(name, t, dtype, shape):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_common(D, state, kmask, mism, pfac, nxt):
+    if mism.dim() != 3:
+        raise ValueError("mism must be (Dmax, B, N)")
+    Dmax, B, N = mism.shape
+    _check("mism", mism, torch.int8, (Dmax, B, N))
+    _check("D", D, torch.int32, (B,))
+    _check("state", state, torch.float32, (B, N))
+    _check("kmask", kmask, torch.float32, (B, N))
+    _check("pfac", pfac, torch.float32, (B, Dmax))
+    _check("nxt", nxt, torch.float32, (B, Dmax))
+    dev = mism.device
+    for name, t in (("D", D), ("state", state), ("kmask", kmask),
+                    ("pfac", pfac), ("nxt", nxt)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, mism on {dev}")
+    return Dmax, B, N
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+
+
+_FWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + \
+    [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + \
+    [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p]
+
+
+def _fwd_fn():
+    fn = _build.load("paint_fwd").paint_fwd_launch
+    fn.argtypes = _FWD_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_fn():
+    fn = _build.load("paint_bwd").paint_bwd_launch
+    fn.argtypes = _BWD_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _stream(dev):
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (any device; the wrappers take them for CPU tensors)
+# ---------------------------------------------------------------------------
+
+def _fwd_rows(D, alpha0, kmask, mism, pfac, nxt, theta):
+    """Generator over forward rows: yields (j, alpha (B,N), ls (B,))."""
+    _, _, tr = _theta_consts(theta)
+    Dmax = mism.shape[0]
+    alpha = alpha0 * kmask
+    ls = torch.zeros_like(alpha[:, 0])
+    comp = torch.zeros_like(ls)
+    asum_eff = alpha.sum(dim=1)
+    yield 0, alpha, ls
+    one = torch.ones_like(ls)
+    zero = torch.zeros_like(ls)
+    for j in range(1, Dmax):
+        upd = j < D
+        rx = asum_eff * pfac[:, j - 1]
+        em = 1.0 + tr * mism[j].to(torch.float32)
+        a_new = (alpha + rx[:, None]) * em * kmask
+        asum = a_new.sum(dim=1)
+        cond = (asum < LOWER_RESCALE) | (asum > UPPER_RESCALE)
+        safe = torch.where(asum > 0, asum, one)
+        a_new = torch.where(cond[:, None], a_new / safe[:, None], a_new)
+        logcorr = torch.where(cond, torch.log(safe), zero)
+        asum_new = torch.where(cond, one, asum)
+        # Kahan-compensated logscale
+        y = (nxt[:, j - 1] + logcorr) - comp
+        t = ls + y
+        comp_new = (t - ls) - y
+        alpha = torch.where(upd[:, None], a_new, alpha)
+        comp = torch.where(upd, comp_new, comp)
+        ls = torch.where(upd, t, ls)
+        asum_eff = torch.where(upd, asum_new, asum_eff)
+        yield j, alpha, ls
+
+
+def fwd_plain(D, alpha0, kmask, mism, pfac, nxt, *, theta):
+    """Forward sweep, row by row. Returns (alphas (Dmax,B,N), lss (Dmax,B))."""
+    Dmax, B, N = mism.shape
+    alphas = torch.empty((Dmax, B, N), dtype=torch.float32, device=mism.device)
+    lss = torch.empty((Dmax, B), dtype=torch.float32, device=mism.device)
+    for j, alpha, ls in _fwd_rows(D, alpha0, kmask, mism, pfac, nxt, theta):
+        alphas[j] = alpha
+        lss[j] = ls
+    return alphas, lss
+
+
+def fwd_capture_plain(D, want, alpha0, kmask, mism, pfac, nxt, *, theta):
+    """Forward sweep keeping only row ``want[b]`` of each target. Returns
+    (acap (B,N), lscap (B,)); zeros where ``want`` names no row."""
+    acap = torch.zeros_like(alpha0)
+    lscap = torch.zeros_like(alpha0[:, 0])
+    for j, alpha, ls in _fwd_rows(D, alpha0, kmask, mism, pfac, nxt, theta):
+        hit = want == j
+        acap = torch.where(hit[:, None], alpha, acap)
+        lscap = torch.where(hit, ls, lscap)
+    return acap, lscap
+
+
+def _bwd_rows(D, beta_end, kmask, mism, pfac, nxt, theta):
+    """Generator over backward rows, descending: yields
+    (j, active (B,), beta_pre (B,N), beta_post (B,N), pls (B,))."""
+    th, nth, tr = _theta_consts(theta)
+    Dmax, B, N = mism.shape
+    beta = torch.zeros_like(beta_end)
+    pls = torch.zeros_like(beta_end[:, 0])
+    comp = torch.zeros_like(pls)
+    bsum_eff = torch.ones_like(pls)
+    beta_init = beta_end * kmask
+    one = torch.ones_like(pls)
+    zero = torch.zeros_like(pls)
+    for j in range(Dmax - 1, -1, -1):
+        is_init = j == D - 1
+        is_step = j < D - 1
+        active = j < D
+        jn = min(j + 1, Dmax - 1)
+        dnext = mism[jn].to(torch.float32)
+        rx = bsum_eff * pfac[:, jn]
+        b1 = rx / nth
+        bt = rx / th - b1
+        em_next = 1.0 + tr * dnext
+        beta_step = (beta + dnext * bt[:, None] + b1[:, None]) * em_next * kmask
+        beta_new = torch.where(is_init[:, None], beta_init, beta_step)
+        w = torch.where(mism[j] > 0, th, nth).to(torch.float32)
+        bsum = (w * beta_new).sum(dim=1)
+        cond = is_step & ((bsum < LOWER_RESCALE) | (bsum > UPPER_RESCALE))
+        safe = torch.where(bsum > 0, bsum, one)
+        beta_fin = torch.where(cond[:, None], beta_new / safe[:, None],
+                               beta_new)
+        logcorr = torch.where(cond, torch.log(safe), zero)
+        bsum_new = torch.where(cond, one, bsum)
+        pls_old = torch.where(is_init, zero, pls)
+        comp_old = torch.where(is_init, zero, comp)
+        inc = torch.where(is_init, zero, nxt[:, jn])
+        y = (inc + logcorr) - comp_old
+        pls_new = pls_old + y
+        comp_new = (pls_new - pls_old) - y
+        beta = torch.where(active[:, None], beta_fin, beta)
+        pls = torch.where(active, pls_new, pls)
+        comp = torch.where(active, comp_new, comp)
+        bsum_eff = torch.where(active, bsum_new, bsum_eff)
+        yield j, active, beta_new, beta_fin, pls_new
+
+
+def bwd_plain(D, beta_end, kmask, mism, pfac, nxt, alphas, lsf, *, theta,
+              emit_beta=False):
+    """Backward sweep fused with the posterior, row by row. Returns
+    (topo (Dmax,B,N), lstot (Dmax,B)); rows >= D[b] are zero. With
+    ``emit_beta`` the outputs are the post-rescale beta rows and the
+    backward-only logscale."""
+    Dmax, B, N = mism.shape
+    out = torch.empty((Dmax, B, N), dtype=torch.float32, device=mism.device)
+    lsout = torch.empty((Dmax, B), dtype=torch.float32, device=mism.device)
+    zrow = torch.zeros((B, N), dtype=torch.float32, device=mism.device)
+    zls = zrow[:, 0]
+    for j, active, b_pre, b_post, pls in _bwd_rows(D, beta_end, kmask, mism,
+                                                   pfac, nxt, theta):
+        if emit_beta:
+            row, lrow = b_post, pls
+        else:
+            row, lrow = alphas[j] * b_pre, lsf[j] + pls
+        out[j] = torch.where(active[:, None], row, zrow)
+        lsout[j] = torch.where(active, lrow, zls)
+    return out, lsout
+
+
+def bwd_capture_plain(D, want, beta_end, kmask, mism, pfac, nxt, *, theta):
+    """Backward sweep keeping the post-rescale beta row ``want[b]`` and the
+    backward-only logscale there. Returns (bcap (B,N), lscap (B,))."""
+    bcap = torch.zeros_like(beta_end)
+    lscap = torch.zeros_like(beta_end[:, 0])
+    for j, active, _, b_post, pls in _bwd_rows(D, beta_end, kmask, mism,
+                                               pfac, nxt, theta):
+        hit = (want == j) & active
+        bcap = torch.where(hit[:, None], b_post, bcap)
+        lscap = torch.where(hit, pls, lscap)
+    return bcap, lscap
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def fwd(D, alpha0, kmask, mism, pfac, nxt, *, theta):
+    """Forward sweep (replaces ``fwd_pallas``). Returns
+    (alphas (Dmax,B,N) post-rescale rows, lss (Dmax,B))."""
+    Dmax, B, N = _check_common(D, alpha0, kmask, mism, pfac, nxt)
+    if mism.device.type == "cpu":
+        return fwd_plain(D, alpha0, kmask, mism, pfac, nxt, theta=theta)
+    dev = mism.device
+    alphas = torch.empty((Dmax, B, N), dtype=torch.float32, device=dev)
+    lss = torch.empty((Dmax, B), dtype=torch.float32, device=dev)
+    _, _, tr = _theta_consts(theta)
+    with torch.cuda.device(dev):
+        err = _fwd_fn()(_ptr(D), _ptr(None), _ptr(alpha0), _ptr(kmask),
+                        _ptr(mism), _ptr(pfac), _ptr(nxt), _ptr(alphas),
+                        _ptr(lss), _ptr(None), _ptr(None), Dmax, B, N, tr, 0,
+                        _stream(dev))
+    launches["fwd"] += 1
+    _build.check(err, "paint_fwd")
+    return alphas, lss
+
+
+def fwd_capture(D, want, alpha0, kmask, mism, pfac, nxt, *, theta):
+    """Forward sweep capturing row ``want[b]`` per target (replaces
+    ``fwd_capture_pallas``). Returns (acap (B,N), lscap (B,))."""
+    Dmax, B, N = _check_common(D, alpha0, kmask, mism, pfac, nxt)
+    _check("want", want, torch.int32, (B,))
+    if mism.device.type == "cpu":
+        return fwd_capture_plain(D, want, alpha0, kmask, mism, pfac, nxt,
+                                 theta=theta)
+    dev = mism.device
+    if want.device != dev:
+        raise ValueError(f"want is on {want.device}, mism on {dev}")
+    acap = torch.empty((B, N), dtype=torch.float32, device=dev)
+    lscap = torch.empty((B,), dtype=torch.float32, device=dev)
+    _, _, tr = _theta_consts(theta)
+    with torch.cuda.device(dev):
+        err = _fwd_fn()(_ptr(D), _ptr(want), _ptr(alpha0), _ptr(kmask),
+                        _ptr(mism), _ptr(pfac), _ptr(nxt), _ptr(None),
+                        _ptr(None), _ptr(acap), _ptr(lscap), Dmax, B, N, tr,
+                        1, _stream(dev))
+    launches["fwd_capture"] += 1
+    _build.check(err, "paint_fwd (capture)")
+    return acap, lscap
+
+
+def _bwd_launch(mode, D, want, beta_end, kmask, mism, pfac, nxt, alphas, lsf,
+                out, lsout, theta):
+    Dmax, B, N = mism.shape
+    th, nth, tr = _theta_consts(theta)
+    dev = mism.device
+    with torch.cuda.device(dev):
+        return _bwd_fn()(_ptr(D), _ptr(want), _ptr(beta_end), _ptr(kmask),
+                         _ptr(mism), _ptr(pfac), _ptr(nxt), _ptr(alphas),
+                         _ptr(lsf), _ptr(out), _ptr(lsout), Dmax, B, N, th,
+                         nth, tr, mode, _stream(dev))
+
+
+def bwd(D, beta_end, kmask, mism, pfac, nxt, alphas, lsf, *, theta,
+        emit_beta=False):
+    """Backward sweep + posterior (replaces ``bwd_pallas``). ``alphas`` /
+    ``lsf`` are the forward outputs. Returns (topo (Dmax,B,N), lstot
+    (Dmax,B)), zeros on rows >= D[b]."""
+    Dmax, B, N = _check_common(D, beta_end, kmask, mism, pfac, nxt)
+    _check("alphas", alphas, torch.float32, (Dmax, B, N))
+    _check("lsf", lsf, torch.float32, (Dmax, B))
+    if mism.device.type == "cpu":
+        return bwd_plain(D, beta_end, kmask, mism, pfac, nxt, alphas, lsf,
+                         theta=theta, emit_beta=emit_beta)
+    dev = mism.device
+    if alphas.device != dev or lsf.device != dev:
+        raise ValueError("alphas and lsf must be on the device of mism")
+    out = torch.empty((Dmax, B, N), dtype=torch.float32, device=dev)
+    lsout = torch.empty((Dmax, B), dtype=torch.float32, device=dev)
+    err = _bwd_launch(_MODE_BETA if emit_beta else _MODE_POST, D, None,
+                      beta_end, kmask, mism, pfac, nxt, alphas, lsf, out,
+                      lsout, theta)
+    launches["bwd"] += 1
+    _build.check(err, "paint_bwd")
+    return out, lsout
+
+
+def bwd_capture(D, want, beta_end, kmask, mism, pfac, nxt, *, theta):
+    """Backward sweep capturing the post-rescale beta row ``want[b]`` and the
+    backward-only logscale there (replaces ``bwd_capture_pallas``). Needs no
+    forward outputs. Returns (bcap (B,N), lscap (B,))."""
+    Dmax, B, N = _check_common(D, beta_end, kmask, mism, pfac, nxt)
+    _check("want", want, torch.int32, (B,))
+    if mism.device.type == "cpu":
+        return bwd_capture_plain(D, want, beta_end, kmask, mism, pfac, nxt,
+                                 theta=theta)
+    dev = mism.device
+    if want.device != dev:
+        raise ValueError(f"want is on {want.device}, mism on {dev}")
+    bcap = torch.empty((B, N), dtype=torch.float32, device=dev)
+    lscap = torch.empty((B,), dtype=torch.float32, device=dev)
+    err = _bwd_launch(_MODE_CAP, D, want, beta_end, kmask, mism, pfac, nxt,
+                      None, None, bcap, lscap, theta)
+    launches["bwd_capture"] += 1
+    _build.check(err, "paint_bwd (capture)")
+    return bcap, lscap

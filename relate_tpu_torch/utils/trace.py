@@ -1,0 +1,86 @@
+"""Per-stage resource tracing.
+
+The reference prints CPU time + max RSS via getrusage at the end of every
+tool (e.g. ``include/pipeline/Paint.cpp:96-105``). This adds the card's
+numbers: per-stage wall clock, host CPU time, max RSS and, where a CUDA
+device is initialised, the peak device memory PyTorch allocated.
+
+Usage::
+
+    with stage("paint"):
+        ...
+    # -> [trace] paint: wall 3.21s cpu 2.87s rss 412MB dev_peak 96MB
+
+Structured records accumulate in ``STAGES`` so a caller can print a final
+per-stage summary table (and tests can assert on it).
+"""
+from __future__ import annotations
+
+import contextlib
+import resource
+import sys
+import time
+from typing import List, Optional
+
+import torch
+
+STAGES: List[dict] = []
+
+
+def _rss_mb() -> float:
+    # ru_maxrss is KB on Linux
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1000.0
+
+
+def _cpu_s() -> float:
+    ru = resource.getrusage(resource.RUSAGE_SELF)
+    return ru.ru_utime + ru.ru_stime
+
+
+def _device_mem_bytes() -> Optional[int]:
+    """Peak bytes PyTorch allocated on the current CUDA device since the
+    stage began; None when no CUDA context exists in this process."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        return int(torch.cuda.max_memory_allocated())
+    return None
+
+
+@contextlib.contextmanager
+def stage(name: str, verbose: bool = True):
+    """Time a pipeline stage; record + optionally print its resource use."""
+    t0 = time.time()
+    c0 = _cpu_s()
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.reset_peak_memory_stats()
+    yield
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    rec = {
+        "stage": name,
+        "wall_s": round(time.time() - t0, 3),
+        "cpu_s": round(_cpu_s() - c0, 3),
+        "max_rss_mb": round(_rss_mb(), 1),
+    }
+    dev = _device_mem_bytes()
+    if dev is not None:
+        rec["dev_peak_mb"] = round(dev / 1e6, 1)
+    STAGES.append(rec)
+    if verbose:
+        msg = (f"[trace] {name}: wall {rec['wall_s']}s "
+               f"cpu {rec['cpu_s']}s rss {rec['max_rss_mb']}MB")
+        if "dev_peak_mb" in rec:
+            msg += f" dev_peak {rec['dev_peak_mb']}MB"
+        print(msg, file=sys.stderr)
+
+
+def summary(verbose: bool = True) -> List[dict]:
+    """Per-stage records accumulated so far; optionally print a table."""
+    if verbose and STAGES:
+        w = max(len(r["stage"]) for r in STAGES)
+        print(f"[trace] {'stage'.ljust(w)}  wall_s  cpu_s  rss_mb",
+              file=sys.stderr)
+        for r in STAGES:
+            print(f"[trace] {r['stage'].ljust(w)}  "
+                  f"{r['wall_s']:6.2f}  {r['cpu_s']:5.2f}  "
+                  f"{r['max_rss_mb']:6.1f}", file=sys.stderr)
+    return list(STAGES)

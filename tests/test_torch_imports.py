@@ -1,0 +1,146 @@
+"""The port stands alone: it imports neither jax nor the JAX package, it
+imports on a machine without nvcc and triton, its wrappers take the plain
+version for CPU tensors, and its entry points do not fall back to the CPU."""
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import relate_tpu_torch
+from relate_tpu_torch.core import painting
+from relate_tpu_torch.ops import _build
+from relate_tpu_torch.ops import merge_scan as ms
+from relate_tpu_torch.ops import paint_kernels as pk
+from relate_tpu_torch.pipeline import cli, relate
+from relate_tpu_torch.utils import devmem
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "relate_tpu_torch"
+
+
+def _module_names():
+    names = ["relate_tpu_torch"]
+    for m in pkgutil.walk_packages([str(PKG)], prefix="relate_tpu_torch."):
+        names.append(m.name)
+    return names
+
+
+def test_every_module_imports_without_jax():
+    names = _module_names()
+    assert len(names) >= 20
+    code = (
+        "import importlib, sys\n"
+        f"for n in {names!r}:\n"
+        "    importlib.import_module(n)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'jaxlib' or m == 'relate_tpu'"
+        " or m.startswith('relate_tpu.') or m == 'triton']\n"
+        "assert not bad, bad\n"
+        "print('imported', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "imported" in out.stdout
+
+
+def _imports_of(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_no_source_file_names_jax_or_the_jax_package():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) >= 25
+    for f in files:
+        for name in _imports_of(f):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "relate_tpu", "triton"), \
+                f"{f}: imports {name}"
+    # the CUDA sources include no PyTorch header (plain C interface)
+    for cu in sorted((PKG / "csrc").glob("*.cu")):
+        text = cu.read_text()
+        assert "torch/" not in text and "ATen" not in text, cu
+        assert 'extern "C"' in text, cu
+
+
+def test_build_names_every_source_and_hashes_its_text():
+    for name in _build.SOURCES:
+        assert (PKG / "csrc" / f"{name}.cu").exists()
+        target = _build._target(name)
+        assert target.startswith(str(PKG / "build"))
+        assert "sm_90a" in " ".join(_build._flags(name))
+    assert "-fmad=false" in _build._flags("merge_scan")
+    assert "-fmad=false" not in _build._flags("paint_fwd")
+    ignored = (ROOT / ".gitignore").read_text().split()
+    assert "relate_tpu_torch/build/" in ignored
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    rng = np.random.default_rng(0)
+    L, N = 40, 6
+    G = (rng.random((L, N)) < 0.3).astype(np.uint8)
+    model = painting.PaintingModel(N=N)
+    plan = painting.build_target_plan(G, rng.random(L) * 0.05, model, 0,
+                                      L - 1)
+    t = torch.from_numpy
+    mism = t(np.ascontiguousarray(
+        (plan.seqk.T[:, :, None] > G[plan.idx.T]).astype(np.int8)))
+    args = (t(plan.D), t(painting.initial_alpha(
+        G, model, 0, np.arange(N, dtype=np.int32))), t(plan.kmask), mism,
+        t(plan.pfac), t(plan.nxt))
+    before = dict(pk.launches), dict(ms.launches)
+    a, ls = pk.fwd(*args, theta=0.001)
+    a2, ls2 = pk.fwd_plain(*args, theta=0.001)
+    assert torch.equal(a, a2) and torch.equal(ls, ls2)
+    d = t(rng.random((N, N)).astype(np.float32))
+    got = ms.merge_scan(d, torch.zeros_like(d), False, 1.0, 0.1, 7)
+    ref = ms.merge_scan_plain(d, torch.zeros_like(d), False, 1.0, 0.1, 7)
+    assert all(torch.equal(x, y) for x, y in zip(got, ref))
+    assert (dict(pk.launches), dict(ms.launches)) == before
+
+
+def test_entry_points_do_not_fall_back_to_the_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None runs on it")
+    G = np.zeros((10, 4), dtype=np.uint8)
+    model = painting.PaintingModel(N=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        devmem.resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        painting.Painter(G, np.zeros(10), model)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        relate.make_chunks("x.haps", "x.sample", "m.txt", str(tmp_path / "o"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        relate.paint(None, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        relate.build_topology(None, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--mode", "Paint", "-o", str(tmp_path / "o")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        devmem.resolve_device("cuda")
+    with pytest.raises(ValueError, match="memory_gb"):
+        devmem.auto_memory_gb("cpu")
+    assert devmem.resolve_device("cpu").type == "cpu"
+
+
+def test_cli_names_the_modes_that_are_not_ported(tmp_path, capsys):
+    for mode in ("All", "FindEquivalentBranches", "InferBranchLengths",
+                 "CombineSections", "Finalize"):
+        assert cli.main(["--mode", mode, "-o", str(tmp_path / "o"),
+                         "--device", "cpu"]) == 2
+        assert "not ported yet" in capsys.readouterr().err
+    assert relate_tpu_torch.__version__

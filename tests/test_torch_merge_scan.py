@@ -1,0 +1,98 @@
+"""The port's plain merge scan against the Pallas kernel of the JAX package
+(interpret mode): merge lists and clade rows must be equal exactly."""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from relate_tpu.ops.merge_scan import merge_scan_pallas
+from relate_tpu_torch.ops import merge_scan as tms
+
+torch.set_num_threads(1)
+
+
+def _matrices(kind, N, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "real":
+        d = rng.random((N, N)).astype(np.float32) * 10
+        dcf = rng.random((N, N)).astype(np.float32) * 3
+    else:
+        # integer-valued and tie-heavy: the choice rests on the hash
+        d = rng.integers(0, 4, (N, N)).astype(np.float32)
+        dcf = rng.integers(0, 3, (N, N)).astype(np.float32)
+    np.fill_diagonal(d, 0)
+    np.fill_diagonal(dcf, 0)
+    return d, dcf
+
+
+@pytest.mark.parametrize("threshold", [1e-6, 5.0])
+@pytest.mark.parametrize("use_cf", [False, True])
+@pytest.mark.parametrize("kind", ["real", "ties"])
+@pytest.mark.parametrize("N", [33, 40, 48])
+def test_merge_scan_plain_matches_pallas(N, kind, use_cf, threshold):
+    d, dcf = _matrices(kind, N, seed=N)
+    seed = 12345 + N
+    ci, cj, cl = merge_scan_pallas(jnp.asarray(d), jnp.asarray(dcf), use_cf,
+                                   threshold, 0.01, seed, interpret=True)
+    pi, pj, pl = tms.merge_scan(torch.from_numpy(d), torch.from_numpy(dcf),
+                                use_cf, threshold, 0.01, seed)
+    assert pi.dtype == torch.int32 and pl.shape == (N - 1, N)
+    assert np.array_equal(np.asarray(ci), pi.numpy())
+    assert np.array_equal(np.asarray(cj), pj.numpy())
+    assert np.array_equal(np.asarray(cl), pl.numpy())
+    assert np.array_equal(tms.clades_from_merges(pi, pj, N).numpy(),
+                          pl.numpy())
+    assert tms.launches["merge_scan"] == 0     # CPU tensors: plain version
+
+
+def test_ties_depend_on_seed_and_cf_on_matrix():
+    """The tie-heavy case really leans on the hash (another seed gives
+    another list) and the clade prior really steers the scan."""
+    d, dcf = _matrices("ties", 40, seed=1)
+    a = tms.merge_scan_plain(torch.from_numpy(d), torch.from_numpy(dcf),
+                             True, 1e-6, 0.01, 1)
+    b = tms.merge_scan_plain(torch.from_numpy(d), torch.from_numpy(dcf),
+                             True, 1e-6, 0.01, 2)
+    assert not torch.equal(a[0], b[0]) or not torch.equal(a[1], b[1])
+    # with a wide band every pair is a candidate and the prior decides
+    d, dcf = _matrices("real", 40, seed=1)
+    on = tms.merge_scan_plain(torch.from_numpy(d), torch.from_numpy(dcf),
+                              True, 5.0, 0.01, 1)
+    off = tms.merge_scan_plain(torch.from_numpy(d), torch.from_numpy(dcf),
+                               False, 5.0, 0.01, 1)
+    assert not torch.equal(on[0], off[0]) or not torch.equal(on[1], off[1])
+
+
+def test_merge_list_is_a_binary_tree():
+    d, dcf = _matrices("real", 37, seed=4)
+    cis, cjs, clades = tms.merge_scan(torch.from_numpy(d),
+                                      torch.from_numpy(dcf), True, 5.0, 5.0,
+                                      11)
+    N = 37
+    live = set(range(N))
+    for t in range(N - 1):
+        a, b = int(cis[t]), int(cjs[t])
+        assert a in live and b in live and a != b
+        live -= {a, b}
+        live.add(N + t)
+    assert live == {2 * N - 2}
+    assert float(clades[-1].sum()) == N
+
+
+def test_inputs_are_not_modified_and_checked():
+    d, dcf = _matrices("real", 16, seed=2)
+    td, tc = torch.from_numpy(d.copy()), torch.from_numpy(dcf.copy())
+    tms.merge_scan(td, tc, True, 1.0, 0.1, 3)
+    assert np.array_equal(td.numpy(), d) and np.array_equal(tc.numpy(), dcf)
+    with pytest.raises(TypeError):
+        tms.merge_scan(td.double(), tc, True, 1.0, 0.1, 3)
+    with pytest.raises(ValueError):
+        tms.merge_scan(td.t(), tc, True, 1.0, 0.1, 3)
+    with pytest.raises(ValueError):
+        tms.merge_scan(td[:, :8], tc, True, 1.0, 0.1, 3)
+
+
+def test_sizes_above_1024_name_the_missing_kernels():
+    big = torch.zeros((1025, 1025))
+    with pytest.raises(NotImplementedError, match="B6.*B7"):
+        tms.merge_scan(big, big, False, 1.0, 0.1, 0)
