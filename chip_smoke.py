@@ -3,18 +3,28 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (MakeChunks -> Paint -> BuildTopology through
-``relate_tpu_torch.pipeline.relate``) at N = 1024 haplotypes and L = 16384
-SNPs of a seeded synthetic panel, builds the CUDA kernels from
-``relate_tpu_torch/csrc``, holds every kernel against its plain PyTorch
-version on the card, and checks the artifacts it wrote. Phases, each
-printing one JSON line: ``device``, ``build``, ``kernels``, ``main_path``,
-``cpu_vs_card``; then the ``{"kernels": [...]}`` line, the card's name and
-power limit as ``nvidia-smi`` gives them, and the result line. Any phase
+Builds the CUDA kernels from ``relate_tpu_torch/csrc``, holds every kernel
+against its plain PyTorch version on the card, drives the port's two main
+paths through ``relate_tpu_torch.pipeline.relate`` and checks what they
+wrote:
+
+- ``run_all`` (``Relate --mode All``: MakeChunks -> Paint -> BuildTopology
+  -> FindEquivalentBranches -> InferBranchLengths -> CombineSections ->
+  Finalize) at N = 2048 haplotypes and L = 8192 SNPs of a seeded synthetic
+  panel: the width at which the merge scan takes its large kernel;
+- MakeChunks -> Paint -> BuildTopology at N = 1024 and L = 8192, the width
+  of the merge-scan kernel that also emits the clade rows.
+
+Phases, each printing one JSON line: ``device``, ``build``, ``inputs``,
+``kernels``, ``main_path`` (N = 1024), ``run_all``
+(N = 2048), ``cpu_vs_card``; then the ``{"kernels": [...]}`` line, the card's name and
+power limit as ``nvidia-smi`` gives them, and the result line. The launch
+counts are set to 0 just before each path and read just after it. Any phase
 that fails ends the run with a non-zero exit code. Needs a CUDA device and
 no network. ``--phases a,b`` runs a subset (the build always runs);
-``--phases profile`` adds a ``torch.profiler`` breakdown of Paint and of one
-section of BuildTopology, which the default run leaves out.
+``--phases profile`` adds a ``torch.profiler`` breakdown of Paint and one
+section of BuildTopology at N = 1024 and of FindEquivalentBranches and
+InferBranchLengths at N = 2048, which the default run leaves out.
 
 How the kernels are compared. The sweeps rescale a row whenever its sum
 leaves [1e-10, 1e10]; the kernel and the plain version add the row in
@@ -26,7 +36,7 @@ logscale + log(sum(row)) at atol 2e-3, on the valid rows; rows at and
 past D[b] of the backward outputs must be exactly zero. ``max_abs_err`` is
 the largest difference of the rows normalised to sum 1. ``rows_rescaled_
 elsewhere`` counts the rows that differ before the scale is taken out.
-The merge scan's outputs (cis, cjs, clades) must be equal exactly.
+The merge scans' outputs (cis, cjs, clades) must be equal exactly.
 """
 from __future__ import annotations
 
@@ -41,14 +51,17 @@ import time
 import numpy as np
 import torch
 
-N_HAP = 1024
-L_SNPS = 16384
+N_HAP = 1024                   # the path of the merge scan with clade rows
+N_LARGE = 2048                 # the run_all path: the large merge scan
+N_ODD = 1576                   # no multiple of 256: the loop tails
+L_SNPS = 8192
 SEED = 20240611
 THETA = 0.001
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS = 67e12             # H100 SXM, float32 outside the tensor cores
+L2_BYTES = 50e6                # H100 SXM: what is re-read from below this stays on chip
 TIME_BUDGET_S = 560.0          # further sections are built while under this
-SMALLER_MEMORY_GB = 2.5        # gives this panel 3 windows of about 6,000 SNPs
+SMALLER_MEMORY_GB = 1.25       # gives the N = 1024 panel 3 windows (about 2,900 SNPs)
 DEV = "cuda"                   # the port's entry points get this device
 
 T_START = time.time()
@@ -142,22 +155,33 @@ def phase_build():
          ptxas=ptxas)
 
 
-def make_panel():
+def make_panel(N):
     from relate_tpu_torch.utils import synth
-    G, bp = synth.synth_coalescent_panel(N_HAP, L_SNPS, seed=SEED)[:2]
+    G, bp = synth.synth_coalescent_panel(N, L_SNPS, seed=SEED)[:2]
     return np.ascontiguousarray(G, dtype=np.uint8), bp
 
 
-def phase_kernels(G, bp, memory_gb):
-    """Each kernel against its plain version on the card, at the shapes of
-    the main path: the plan of the panel's middle window (both capture
-    kernels have work there) and N x N merge matrices."""
+def make_row(name, source, replaces, err, direct, ms_k, ms_p, nbytes, ops,
+             **extra):
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+    return dict(
+        name=name, route="cuda", source=source, replaces=replaces,
+        launches=0, max_abs_err=err, ms=ms_k, plain_ms=ms_p,
+        bound_ms=max(b_ms, o_ms),
+        bound_by="bytes" if b_ms >= o_ms else "operations",
+        library_ms=None, rows_rescaled_elsewhere=direct,
+        bytes=int(nbytes), operations=int(ops), **extra)
+
+
+def sweep_rows(G, bp, memory_gb, w):
+    """The four sweep kernels against their plain versions on the card, at
+    the shapes that window ``w`` of the panel's plan gives them (a middle
+    window, so both capture kernels have work). Returns the four rows and a
+    distance matrix assembled from the posterior, for the merge scans."""
     from relate_tpu_torch.core import painting
     from relate_tpu_torch.core.distance import _assemble_ops
-    from relate_tpu_torch.core.treebuilder import thresholds
     from relate_tpu_torch.io import chunking
     from relate_tpu_torch.io import haps as hio
-    from relate_tpu_torch.ops import merge_scan as ms
     from relate_tpu_torch.ops import paint_kernels as pk
 
     dev = torch.device(DEV)
@@ -169,11 +193,10 @@ def phase_kernels(G, bp, memory_gb):
     bounds = np.asarray(wplans[0].boundaries)
     W = len(bounds) - 1
     if W < 3:
-        fail(f"kernels: expected >= 3 windows, got {W}")
+        fail(f"kernels: expected >= 3 windows at N = {N}, got {W}")
     model = painting.PaintingModel(N=N, theta=THETA)
     painter = painting.Painter(G, r, model, device=dev)
     bsb, bse = painter.window_boundary_sites(bounds)
-    w = 1
     targets = np.arange(N, dtype=np.int32)
     prep = painter._prep(targets, bsb[w], bse[w],
                          final_raw=painter._extended_final_raw(bse[w]))
@@ -189,20 +212,9 @@ def phase_kernels(G, bp, memory_gb):
     Dl = D.long()
     all_b = torch.ones(B, dtype=torch.bool, device=dev)
     res = []
-
-    def record(name, source, replaces, err, direct, ms_k, ms_p, nbytes, ops,
-               **extra):
-        b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
-        res.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=0, max_abs_err=err, ms=ms_k, plain_ms=ms_p,
-            bound_ms=max(b_ms, o_ms),
-            bound_by="bytes" if b_ms >= o_ms else "operations",
-            library_ms=None, rows_rescaled_elsewhere=direct,
-            bytes=int(nbytes), operations=int(ops), **extra))
-
     small = 3 * B * N * 4 + 2 * B * Dmax * 4 + Dmax * B * 4
     cells = int(Dl.sum().item())            # valid (row, target) pairs
+    shape = [Dmax, B, N]
 
     # B1 forward
     fk = lambda: pk.fwd(D, a0, kmask, mism, pfac, nxt, theta=THETA)  # noqa: E731
@@ -213,11 +225,12 @@ def phase_kernels(G, bp, memory_gb):
     err, direct = compare_rows("paint_fwd", al_k, ls_k, al_p, ls_p,
                                torch.ones_like(valid))
     del al_p, ls_p
-    record("paint_fwd", "relate_tpu_torch/csrc/paint_fwd.cu",
-           "relate_tpu/ops/paint_kernels.py:233", err, direct,
-           time_ms(fk, 3), time_ms(fp, 1),
-           (cells - B) * N + Dmax * B * N * 4 + small, 6 * cells * N,
-           shape=[Dmax, B, N])
+    res.append(make_row(
+        "paint_fwd", "relate_tpu_torch/csrc/paint_fwd.cu",
+        "relate_tpu/ops/paint_kernels.py:233", err, direct,
+        time_ms(fk, 3), time_ms(fp, 1),
+        (cells - B) * N + Dmax * B * N * 4 + small, 6 * cells * N,
+        shape=shape))
 
     # B2 backward + posterior (and its beta-emitting mode)
     for emit_beta in (False, True):
@@ -236,11 +249,12 @@ def phase_kernels(G, bp, memory_gb):
         del to_p, lt_p
         if not emit_beta:
             topo, lstot = to_k, lt_k
-            record("paint_bwd", "relate_tpu_torch/csrc/paint_bwd.cu",
-                   "relate_tpu/ops/paint_kernels.py:284", err, direct,
-                   time_ms(bk, 3), time_ms(bpl, 1),
-                   cells * N * 5 + Dmax * B * N * 4 + small + Dmax * B * 4,
-                   8 * cells * N, shape=[Dmax, B, N])
+            res.append(make_row(
+                "paint_bwd", "relate_tpu_torch/csrc/paint_bwd.cu",
+                "relate_tpu/ops/paint_kernels.py:284", err, direct,
+                time_ms(bk, 3), time_ms(bpl, 1),
+                cells * N * 5 + Dmax * B * N * 4 + small + Dmax * B * 4,
+                8 * cells * N, shape=shape))
         else:
             res[-1]["emit_beta_max_abs_err"] = err
         del to_k, lt_k
@@ -256,11 +270,12 @@ def phase_kernels(G, bp, memory_gb):
     err, direct = compare_rows("paint_fwd_capture", ac_k, lc_k, ac_p, lc_p,
                                all_b)
     rows_f = int(torch.minimum(want_f.long(), Dl - 1).sum().item())
-    record("paint_fwd_capture", "relate_tpu_torch/csrc/paint_fwd.cu",
-           "relate_tpu/ops/paint_kernels.py:394", err, direct,
-           time_ms(ck, 3), time_ms(cp_, 1),
-           rows_f * N + 3 * B * N * 4 + 2 * B * Dmax * 4, 6 * rows_f * N,
-           shape=[Dmax, B, N])
+    res.append(make_row(
+        "paint_fwd_capture", "relate_tpu_torch/csrc/paint_fwd.cu",
+        "relate_tpu/ops/paint_kernels.py:394", err, direct,
+        time_ms(ck, 3), time_ms(cp_, 1),
+        rows_f * N + 3 * B * N * 4 + 2 * B * Dmax * 4, 6 * rows_f * N,
+        shape=shape))
 
     ck = lambda: pk.bwd_capture(D, want_b, be, kmask, mism, pfac, nxt,  # noqa: E731
                                 theta=THETA)
@@ -274,48 +289,68 @@ def phase_kernels(G, bp, memory_gb):
     if bool((bc_k * ~hit[:, None]).any()):
         fail("paint_bwd_capture: a target with no wanted row is not zero")
     rows_b = int(((Dl - want_b.long()) * hit).sum().item())
-    record("paint_bwd_capture", "relate_tpu_torch/csrc/paint_bwd.cu",
-           "relate_tpu/ops/paint_kernels.py:515", err, direct,
-           time_ms(ck, 3), time_ms(cp_, 1),
-           rows_b * N + 3 * B * N * 4 + 2 * B * Dmax * 4, 8 * rows_b * N,
-           shape=[Dmax, B, N])
+    res.append(make_row(
+        "paint_bwd_capture", "relate_tpu_torch/csrc/paint_bwd.cu",
+        "relate_tpu/ops/paint_kernels.py:515", err, direct,
+        time_ms(ck, 3), time_ms(cp_, 1),
+        rows_b * N + 3 * B * N * 4 + 2 * B * Dmax * 4, 8 * rows_b * N,
+        shape=shape))
     del ac_k, ac_p, bc_k, bc_p
 
-    # B5 merge scan: a distance matrix assembled from the posterior above
-    # (use_cf off, then on with the clade prior of the first tree) and a
-    # tie-heavy integer matrix that leans on the hash
-    thr, thr_cf = thresholds(THETA)
-    val = -float(np.log(THETA / (1.0 - THETA)))
+    # a distance matrix assembled from the posterior above
     rows = torch.clamp(Dl // 2, max=Dmax - 2)
     half = torch.full((B,), 0.5, dtype=torch.float32, device=dev)
     exact = torch.arange(B, device=dev) % 3 == 0
     mat = _assemble_ops(topo, lstot, rows, exact, half, half,
                         torch.arange(B, device=dev)).contiguous()
-    del topo, lstot
+    return res, mat
+
+
+def merge_cases(mat, scan):
+    """The three inputs of a merge-scan comparison at the size of ``mat``:
+    the posterior's distance matrix with use_cf off, the same plus
+    tie-heavy integers with the clade prior of the first case's tree on,
+    and tie-heavy integer matrices that lean on the hash. ``scan`` gives
+    (cis, cjs, clades) for the first case."""
+    from relate_tpu_torch.core.treebuilder import thresholds
+    N = mat.shape[0]
+    dev = mat.device
+    thr, thr_cf = thresholds(THETA)
+    val = -float(np.log(THETA / (1.0 - THETA)))
     zeros = torch.zeros_like(mat)
-    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    gen = torch.Generator(device="cpu").manual_seed(SEED + N)
     ties = torch.randint(0, 4, (N, N), generator=gen).to(torch.float32).to(dev)
     ties_cf = torch.randint(0, 3, (N, N), generator=gen).to(
         torch.float32).to(dev)
-    worst, ms_k, ms_p, detail = 0.0, None, None, []
-    # the second case takes its clade prior from the first one's tree
-    _, _, cl0 = ms.merge_scan(mat, zeros, False, thr, thr_cf, 12345)
+    cl0 = scan(mat, zeros, False, thr, thr_cf, 12345)[2]
     dcf1 = (val * (cl0.t() @ (1.0 - cl0))).contiguous()
-    cases = [("posterior", mat, zeros, False, 12345),
-             ("posterior+clade_prior", mat + 0.25 * ties, dcf1, True, 777),
-             ("ties", ties, ties_cf, True, 4242)]
+    return thr, thr_cf, [
+        ("posterior", mat, zeros, False, 12345),
+        ("posterior+clade_prior", (mat + 0.25 * ties).contiguous(), dcf1,
+         True, 777),
+        ("ties", ties, ties_cf, True, 4242)]
+
+
+def first_difference(a, b):
+    ne = (a != b).nonzero()
+    return int(ne[0]) if ne.numel() else -1
+
+
+def merge_scan_row(mat):
+    """B5, the merge scan that also emits the clade rows, at N = 1024."""
+    from relate_tpu_torch.ops import merge_scan as ms
+    N = mat.shape[0]
+    thr, thr_cf, cases = merge_cases(mat, ms.merge_scan)
+    worst, ms_k, ms_p, detail = 0.0, None, None, []
     for label, d_, dcf_, ucf, seed in cases:
-        d_ = d_.contiguous()
         k = ms.merge_scan(d_, dcf_, ucf, thr, thr_cf, seed)
         p = ms.merge_scan_plain(d_, dcf_, ucf, thr, thr_cf, seed)
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in zip(k, p))
         detail.append({"case": label, "use_cf": ucf, "equal": same})
         if not same:
-            t_bad = int((k[0] != p[0]).nonzero()[0]) if \
-                bool((k[0] != p[0]).any()) else -1
             fail(f"merge_scan[{label}]: merge lists differ from the plain "
-                 f"version (first at step {t_bad})")
+                 f"version (first at step {first_difference(k[0], p[0])})")
         worst = max(worst, float((k[2] - p[2]).abs().max().item()))
         if label == "posterior+clade_prior":
             fn_k = lambda: ms.merge_scan(d_, dcf_, ucf, thr, thr_cf, seed)  # noqa: E731
@@ -323,34 +358,160 @@ def phase_kernels(G, bp, memory_gb):
                                                seed)
             ms_k, ms_p = time_ms(fn_k, 3), time_ms(fn_p, 1)
     live_pairs = sum((N - t) * (N - t - 1) for t in range(N - 1))
-    record("merge_scan", "relate_tpu_torch/csrc/merge_scan.cu",
-           "relate_tpu/ops/merge_scan.py:371", worst, 0, ms_k, ms_p,
-           2 * N * N * 4 + (N - 1) * N * 4 + 2 * (N - 1) * 4,
-           9 * live_pairs, shape=[N, N], cases=detail,
-           live_bytes_ms=live_pairs * 16 / HBM_BYTES_PER_S * 1e3)
+    return make_row(
+        "merge_scan", "relate_tpu_torch/csrc/merge_scan.cu",
+        "relate_tpu/ops/merge_scan.py:371", worst, 0, ms_k, ms_p,
+        2 * N * N * 4 + (N - 1) * N * 4 + 2 * (N - 1) * 4,
+        9 * live_pairs, shape=[N, N], cases=detail,
+        live_bytes_ms=live_pairs * 16 / HBM_BYTES_PER_S * 1e3)
+
+
+def merge_scan_large_row(mat_large, mat_small):
+    """B6, the merge scan without clade state: against its plain version at
+    N = 2048 and at an N that is no multiple of 256 (merge lists equal
+    exactly), and against B5 at N = 1024 (merge lists equal, and
+    ``clades_from_merges`` of its lists equal to B5's clade rows). The
+    clades rebuilt from its lists are held against the plain version's at
+    every size."""
+    from relate_tpu_torch.ops import merge_scan as ms
+    N = mat_large.shape[0]
+    if not ms.MAX_N_SMALL < N <= ms.MAX_N_LARGE:
+        fail(f"merge_scan_large: N = {N} is not on the large route")
+    detail, ms_k, ms_p, ms_c = [], None, None, None
+
+    def against_plain(n, label, d_, dcf_, ucf, thr, thr_cf, seed):
+        k = ms.merge_scan_large(d_, dcf_, ucf, thr, thr_cf, seed)
+        p = ms.merge_scan_plain(d_, dcf_, ucf, thr, thr_cf, seed)
+        torch.cuda.synchronize()
+        same = torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+        detail.append({"N": n, "case": label, "use_cf": ucf, "equal": same})
+        if not same:
+            fail(f"merge_scan_large[N={n}, {label}]: merge lists differ "
+                 "from the plain version (first at step "
+                 f"{first_difference(k[0], p[0])})")
+        if not torch.equal(ms.clades_from_merges(k[0], k[1], n), p[2]):
+            fail(f"merge_scan_large[N={n}, {label}]: the clades rebuilt from "
+                 "the merge lists differ from the plain version's")
+        return k
+
+    thr, thr_cf, cases = merge_cases(mat_large, ms.merge_scan)
+    for label, d_, dcf_, ucf, seed in cases[1:]:
+        k = against_plain(N, label, d_, dcf_, ucf, thr, thr_cf, seed)
+        if label == "posterior+clade_prior":
+            fn_k = lambda: ms.merge_scan_large(d_, dcf_, ucf, thr, thr_cf,  # noqa: E731
+                                               seed)
+            fn_p = lambda: ms.merge_scan_plain(d_, dcf_, ucf, thr, thr_cf,  # noqa: E731
+                                               seed, with_clades=False)
+            fn_c = lambda: ms.clades_from_merges(k[0], k[1], N)  # noqa: E731
+            ms_k, ms_p, ms_c = time_ms(fn_k, 3), time_ms(fn_p, 1), \
+                time_ms(fn_c, 3)
+    odd = mat_large[:N_ODD, :N_ODD].contiguous()
+    _, _, cases = merge_cases(odd, ms.merge_scan)
+    for label, d_, dcf_, ucf, seed in cases[1:]:
+        against_plain(N_ODD, label, d_, dcf_, ucf, thr, thr_cf, seed)
+    # the large kernel below its route's size, against the kernel with
+    # clade rows
+    n = mat_small.shape[0]
+    _, _, cases = merge_cases(mat_small, ms.merge_scan)
+    for label, d_, dcf_, ucf, seed in cases[1:]:
+        small = ms.merge_scan(d_, dcf_, ucf, thr, thr_cf, seed)
+        large = ms.merge_scan_large(d_, dcf_, ucf, thr, thr_cf, seed)
+        rebuilt = ms.clades_from_merges(large[0], large[1], n)
+        torch.cuda.synchronize()
+        same = (torch.equal(small[0], large[0])
+                and torch.equal(small[1], large[1])
+                and torch.equal(small[2], rebuilt))
+        detail.append({"N": n, "case": label + " vs merge_scan",
+                       "use_cf": ucf, "equal": same})
+        if not same:
+            fail(f"merge_scan_large[N={n}, {label}]: lists or rebuilt clades "
+                 "differ from the kernel with clade rows")
+    live_pairs = sum((N - t) * (N - t - 1) for t in range(N - 1))
+    # two reckonings, the larger is the bound: the float operations, and
+    # the bytes that must come from device memory. Step t reads the live
+    # entries of d, dt, dcf, dcft, (N-t)^2 * 16 bytes (67 MB at N = 2048);
+    # they come from device memory only while that region is larger than
+    # the L2, and at least once (the inputs read, the lists written).
+    # ``live_bytes_ms`` is every step's live entries at the memory rate,
+    # as in the row of the scan with clade rows.
+    io_bytes = 2 * N * N * 4 + 2 * (N - 1) * 4
+    hbm_bytes = sum((N - t) * (N - t - 1) * 16 for t in range(N - 1)
+                    if (N - t) * (N - t) * 16 > L2_BYTES)
+    return make_row(
+        "merge_scan_large", "relate_tpu_torch/csrc/merge_scan.cu",
+        "relate_tpu/ops/merge_scan.py:303", 0.0, 0, ms_k, ms_p,
+        max(io_bytes, hbm_bytes), 9 * live_pairs, shape=[N, N], cases=detail,
+        clades_from_merges_ms=ms_c,
+        steps_above_l2=sum((N - t) * (N - t) * 16 > L2_BYTES
+                           for t in range(N - 1)),
+        live_bytes_ms=live_pairs * 16 / HBM_BYTES_PER_S * 1e3,
+        io_bytes_ms=io_bytes / HBM_BYTES_PER_S * 1e3)
+
+
+def phase_kernels(panels):
+    """Each kernel against its plain version on the card, at the shapes of
+    the two main paths. ``panels``: {N: (G, bp, memory_gb)}. The rows of
+    the sweeps and of the merge scan with clade rows hold the numbers at
+    N = 1024 (the sweeps' numbers at N = 2048 stand beside them under
+    ``at_n2048``); the row of the large merge scan holds those at N = 2048."""
+    res, mat_small = sweep_rows(*panels[N_HAP], w=1)
+    res.append(merge_scan_row(mat_small))
+    torch.cuda.empty_cache()
+    wide, mat_large = sweep_rows(*panels[N_LARGE], w=1)
+    for row, at in zip(res, wide):
+        row["at_n2048"] = {k: at[k] for k in (
+            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "rows_rescaled_elsewhere")}
+    torch.cuda.empty_cache()
+    res.append(merge_scan_large_row(mat_large, mat_small))
     emit("kernels", kernels=res,
          tolerance="sweeps: rows/sum rtol 1e-5, logscale+log(sum) atol 2e-3; "
-                   "merge scan: exact")
+                   "merge scans: exact")
     return res
+
+
+def reset_counts():
+    from relate_tpu_torch.ops import merge_scan as ms
+    from relate_tpu_torch.ops import paint_kernels as pk
+    for d in (pk.launches, ms.launches):
+        for k in d:
+            d[k] = 0
+
+
+def read_counts():
+    from relate_tpu_torch.ops import merge_scan as ms
+    from relate_tpu_torch.ops import paint_kernels as pk
+    return {"paint_fwd": pk.launches["fwd"],
+            "paint_bwd": pk.launches["bwd"],
+            "paint_fwd_capture": pk.launches["fwd_capture"],
+            "paint_bwd_capture": pk.launches["bwd_capture"],
+            "merge_scan": ms.launches["merge_scan"],
+            "merge_scan_large": ms.launches["merge_scan_large"]}
+
+
+def check_tree(what, par, N):
+    """A merge-ordered binary tree on N leaves: the root last, every parent
+    an internal node above its child, every internal node two children."""
+    M = 2 * N - 1
+    par = np.asarray(par)
+    if par.shape != (M,) or par[M - 1] != -1 or (par[:M - 1] < N).any() \
+            or (par[:M - 1] <= np.arange(M - 1)).any():
+        fail(f"{what} is not a merge-ordered tree")
+    kids = np.bincount(par[:M - 1], minlength=M)
+    if (kids[N:] != 2).any() or kids[:N].any():
+        fail(f"{what} is not binary on {N} leaves")
 
 
 def check_section(store, w, N, n_snps_expected):
     from relate_tpu_torch.io import ancmut
     anc = ancmut.read_anc_bin(store.path("chunk_0", f"trees_{w}.anc"))
     muts = ancmut.read_mut_short(store.path("chunk_0", f"muts_{w}.mut"))
-    M = 2 * N - 1
     if anc.N != N or not anc.seq:
         fail(f"section {w}: empty or wrong-sized .anc")
     prev = -1
     for mt in anc.seq:
         tr = mt.tree
-        par = np.asarray(tr.parent)
-        if par.shape != (M,) or par[M - 1] != -1 or (par[:M - 1] < N).any() \
-                or (par[:M - 1] <= np.arange(M - 1)).any():
-            fail(f"section {w}: tree at {mt.pos} is not a merge-ordered tree")
-        kids = np.bincount(par[:M - 1], minlength=M)
-        if (kids[N:] != 2).any() or kids[:N].any():
-            fail(f"section {w}: tree at {mt.pos} is not binary on {N} leaves")
+        check_tree(f"section {w}: tree at {mt.pos}", tr.parent, N)
         if not np.isfinite(tr.num_events).all():
             fail(f"section {w}: non-finite event counts")
         if mt.pos <= prev or (tr.SNP_begin > tr.SNP_end).any() \
@@ -370,12 +531,18 @@ def check_section(store, w, N, n_snps_expected):
                 not_mapping_share=n_multi / len(muts))
 
 
+def add_launches(kernels, path, counts):
+    """Add one path's launch counts to the kernels' rows."""
+    for k in kernels:
+        k["launches"] += counts[k["name"]]
+        k.setdefault("launches_by_path", {})[path] = counts[k["name"]]
+
+
 def phase_main_path(G, bp, memory_gb, kernels):
-    """MakeChunks -> Paint -> BuildTopology through the port's entry points,
-    with every launch count set to 0 just before and read just after."""
+    """MakeChunks -> Paint -> BuildTopology at N = 1024 through the port's
+    entry points, with every launch count set to 0 just before and read just
+    after. This is the path of the merge scan with clade rows."""
     from relate_tpu_torch.io.chunking import ArtifactStore
-    from relate_tpu_torch.ops import merge_scan as ms
-    from relate_tpu_torch.ops import paint_kernels as pk
     from relate_tpu_torch.pipeline import relate
     from relate_tpu_torch.utils import synth
     from relate_tpu_torch.utils.trace import stage, STAGES
@@ -387,9 +554,7 @@ def phase_main_path(G, bp, memory_gb, kernels):
         synth.write_flat_map(os.path.join(tmp, "map.txt"), int(bp[-1]))
         t_inputs = time.time() - t0
 
-        for k in pk.launches:
-            pk.launches[k] = 0
-        ms.launches["merge_scan"] = 0
+        reset_counts()
         del STAGES[:]
 
         out = os.path.join(tmp, "store")
@@ -426,11 +591,7 @@ def phase_main_path(G, bp, memory_gb, kernels):
                                       device=DEV)
             built.append(w)
         torch.cuda.synchronize()
-        counts = {"paint_fwd": pk.launches["fwd"],
-                  "paint_bwd": pk.launches["bwd"],
-                  "paint_fwd_capture": pk.launches["fwd_capture"],
-                  "paint_bwd_capture": pk.launches["bwd_capture"],
-                  "merge_scan": ms.launches["merge_scan"]}
+        counts = read_counts()
         # every stage() sets the peak counter back, so the run's peak is the
         # largest of the stages' own peaks
         peak = max(r.get("dev_peak_mb", 0.0) for r in STAGES) * 1e6
@@ -447,9 +608,9 @@ def phase_main_path(G, bp, memory_gb, kernels):
         if z["alpha"].shape != (ch.N, ch.N) or not (z["alpha"] >= 0).all():
             fail("main_path: paint_1.npz alpha has the wrong shape or sign")
 
-    for k in kernels:
-        k["launches"] = counts[k["name"]]
-    missing = [n for n, c in counts.items() if c <= 0]
+    add_launches(kernels, "build_topology_n1024", counts)
+    missing = [n for n, c in counts.items()
+               if c <= 0 and n != "merge_scan_large"]
     emit("main_path", N=int(ch.N), L=int(ch.L), windows=W,
          boundaries=[int(b) for b in bounds], memory_gb=memory_gb,
          sections_built=built, sections=sections,
@@ -462,55 +623,183 @@ def phase_main_path(G, bp, memory_gb, kernels):
         fail(f"main_path: kernels never launched: {missing}")
 
 
-def phase_profile(G, bp, memory_gb):
-    """Optional (``--phases profile``): Paint and one section of
-    BuildTopology under ``torch.profiler``; prints the device's busy share
-    of the wall time and the kernels that take most of the device time."""
-    from torch.profiler import ProfilerActivity, profile
+def phase_run_all(G, bp, memory_gb, kernels):
+    """``run_all`` (Relate --mode All) at N = 2048 through the port's entry
+    point, with every launch count set to 0 just before and read just after,
+    and the checks on the ``.anc``/``.mut`` it wrote."""
+    from relate_tpu_torch.io import ancmut
     from relate_tpu_torch.io.chunking import ArtifactStore
     from relate_tpu_torch.pipeline import relate
     from relate_tpu_torch.utils import synth
+    from relate_tpu_torch.utils.trace import STAGES
 
+    L, N = G.shape
     with tempfile.TemporaryDirectory(prefix="relate_smoke_") as tmp:
+        t0 = time.time()
         prefix = os.path.join(tmp, "panel")
         synth.write_haps_sample(G, bp, prefix)
         synth.write_flat_map(os.path.join(tmp, "map.txt"), int(bp[-1]))
-        out = os.path.join(tmp, "store")
-        relate.make_chunks(prefix + ".haps", prefix + ".sample",
-                           os.path.join(tmp, "map.txt"), out,
-                           memory_gb=memory_gb, device=DEV)
-        store = ArtifactStore(out)
-        rows = {}
-        for name, fn in (
-                ("Paint", lambda: relate.paint(store, 0, theta=THETA,
-                                               device=DEV)),
-                ("BuildTopology[1]", lambda: relate.build_topology(
-                    store, 0, seed=1, theta=THETA, first_section=1,
-                    last_section=1, device=DEV))):
-            torch.cuda.synchronize()
-            t0 = time.time()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            wall = time.time() - t0
-            dev_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
-                                       getattr(e, "self_cuda_time_total", 0))
-            evs = [e for e in prof.key_averages() if dev_us(e) > 0]
-            busy = sum(dev_us(e) for e in evs) / 1e6
-            top = sorted(evs, key=dev_us, reverse=True)[:8]
-            rows[name] = dict(
-                wall_s_profiled=round(wall, 3), device_busy_s=round(busy, 4),
-                device_busy_share=round(busy / wall, 4),
-                top=[[e.key[:60], round(dev_us(e) / 1e3, 3), e.count]
-                     for e in top])
+        t_inputs = time.time() - t0
+
+        reset_counts()
+        del STAGES[:]
+        out = os.path.join(tmp, "out")
+        t0 = time.time()
+        relate.run_all(prefix + ".haps", prefix + ".sample",
+                       os.path.join(tmp, "map.txt"), out, seed=1,
+                       memory_gb=memory_gb, theta=THETA, cleanup=False,
+                       verbose=False, device=DEV)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = read_counts()
+        peak = max(r.get("dev_peak_mb", 0.0) for r in STAGES) * 1e6
+
+        store = ArtifactStore(out + ".tmpdir")
+        plan, wplans = store.load_plan()
+        W = wplans[0].num_windows
+        if plan.N != N or plan.num_chunks != 1 or W < 2:
+            fail(f"run_all: N = {plan.N}, chunks = {plan.num_chunks}, "
+                 f"W = {W}; wanted N = {N}, one chunk, W >= 2")
+        trees_per_section = [len(ancmut.read_anc_bin(
+            store.path("chunk_0", f"trees_{w}.anc")).seq) for w in range(W)]
+        anc = ancmut.read_anc_text(out + ".anc")
+        muts = ancmut.read_mut_final(out + ".mut")
+
+    if anc.N != N or len(anc.seq) != sum(trees_per_section):
+        fail(f"run_all: .anc has N = {anc.N} and {len(anc.seq)} trees; the "
+             f"sections have {trees_per_section}")
+    if len(muts) != L or [m["snp"] for m in muts] != list(range(L)):
+        fail(f"run_all: {len(muts)} .mut rows for {L} SNPs")
+    prev = -1
+    totals = []
+    for mt in anc.seq:
+        check_tree(f"run_all: tree at {mt.pos}", mt.tree.parent, N)
+        bl = mt.tree.branch_length
+        if not np.isfinite(bl).all() or (bl < 0).any():
+            fail(f"run_all: tree at {mt.pos} has a branch length that is "
+                 "not finite or negative")
+        if np.unique(bl[:-1]).size < 2:
+            fail(f"run_all: tree at {mt.pos} has all branch lengths equal")
+        if mt.pos <= prev:
+            fail("run_all: tree positions are not ascending")
+        if (mt.tree.SNP_begin > mt.tree.SNP_end).any():
+            fail(f"run_all: tree at {mt.pos} has SNP_begin > SNP_end")
+        prev = mt.pos
+        totals.append(float(bl.sum()))
+    for m in muts:
+        if not 0 <= m["tree"] < len(anc.seq):
+            fail(f"run_all: SNP {m['snp']} names tree {m['tree']}")
+        if not (np.isfinite(m["age_begin"]) and np.isfinite(m["age_end"])
+                and m["age_begin"] <= m["age_end"]):
+            fail(f"run_all: SNP {m['snp']} has age_begin > age_end")
+    mapped = [m for m in muts if len(m["branch"]) == 1]
+    if not any(m["age_end"] > 0 for m in mapped):
+        fail("run_all: no mutation has an age")
+    n_not_mapping = sum(m["is_not_mapping"] for m in muts)
+
+    mcmc_stats = [m for r in STAGES for m in r.get("mcmc", [])]
+    add_launches(kernels, "run_all_n2048", counts)
+    needed = ("paint_fwd", "paint_bwd", "paint_fwd_capture",
+              "paint_bwd_capture", "merge_scan_large")
+    missing = [n for n in needed if counts[n] <= 0]
+    emit("run_all", N=N, L=L, windows=W,
+         boundaries=[int(b) for b in wplans[0].boundaries],
+         memory_gb=memory_gb, wall_s=round(wall, 3),
+         stages=[{k: r.get(k) for k in ("stage", "wall_s", "cpu_s",
+                                         "dev_peak_mb")}
+                 for r in STAGES],
+         write_inputs_s=round(t_inputs, 2), launches=counts,
+         trees=len(anc.seq), trees_per_section=trees_per_section,
+         mcmc=mcmc_stats,
+         mcmc_rounds_max=max(r["rounds"] for r in mcmc_stats),
+         total_branch_length_generations=dict(
+             min=min(totals), median=float(np.median(totals)),
+             max=max(totals)),
+         not_mapping=n_not_mapping, not_mapping_share=n_not_mapping / L,
+         flipped=sum(m["flipped"] for m in muts),
+         peak_device_memory_gb=round(peak / 1e9, 3))
+    if missing:
+        fail(f"run_all: kernels never launched: {missing}")
+    if counts["merge_scan"]:
+        fail("run_all: the N = 2048 path launched the N <= 1024 merge scan")
+
+
+def profiled(fn):
+    """Run ``fn`` under ``torch.profiler``: wall seconds, the device's busy
+    seconds and share, and the kernels that take most of the device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    dev_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
+                               getattr(e, "self_cuda_time_total", 0))
+    # Device-side events only (kernels and copies). A PyTorch operator's row
+    # carries the time of the kernels it launched as well, so counting both
+    # would count that time twice; the runtime's "... Loading" rows are
+    # one-off module loads, not work of the card.
+    evs = [e for e in prof.key_averages()
+           if dev_us(e) > 0 and e.device_type == DeviceType.CUDA
+           and not e.key.endswith("Loading")]
+    busy = sum(dev_us(e) for e in evs) / 1e6
+    top = sorted(evs, key=dev_us, reverse=True)[:8]
+    return dict(
+        wall_s_profiled=round(wall, 3), device_busy_s=round(busy, 4),
+        device_busy_share=round(busy / wall, 4),
+        device_kernels=int(sum(e.count for e in evs)),
+        top=[[e.key[:60], round(dev_us(e) / 1e3, 3), e.count] for e in top])
+
+
+def phase_profile(panels):
+    """Optional (``--phases profile``): Paint and one section of
+    BuildTopology at N = 1024, and FindEquivalentBranches and
+    InferBranchLengths of the chunk at N = 2048, under ``torch.profiler``."""
+    from relate_tpu_torch.io.chunking import ArtifactStore
+    from relate_tpu_torch.pipeline import relate
+    from relate_tpu_torch.utils import synth
+    from relate_tpu_torch.utils.trace import STAGES, stage
+
+    rows = {}
+    with tempfile.TemporaryDirectory(prefix="relate_smoke_") as tmp:
+        stores = {}
+        for N, (G, bp, memory_gb) in panels.items():
+            prefix = os.path.join(tmp, f"panel{N}")
+            synth.write_haps_sample(G, bp, prefix)
+            synth.write_flat_map(prefix + ".map", int(bp[-1]))
+            out = os.path.join(tmp, f"store{N}")
+            relate.make_chunks(prefix + ".haps", prefix + ".sample",
+                               prefix + ".map", out, memory_gb=memory_gb,
+                               device=DEV)
+            stores[N] = ArtifactStore(out)
+        small, large = stores[N_HAP], stores[N_LARGE]
+        rows["Paint[N=1024]"] = profiled(
+            lambda: relate.paint(small, 0, theta=THETA, device=DEV))
+        rows["BuildTopology[1][N=1024]"] = profiled(
+            lambda: relate.build_topology(small, 0, seed=1, theta=THETA,
+                                          first_section=1, last_section=1,
+                                          device=DEV))
+        relate.paint(large, 0, theta=THETA, device=DEV)
+        relate.build_topology(large, 0, seed=1, theta=THETA, device=DEV)
+        rows["FindEquivalentBranches[N=2048]"] = profiled(
+            lambda: relate.find_equivalent_branches(large, 0, device=DEV))
+        def infer():
+            with stage("infer_branch_lengths", verbose=False):
+                relate.infer_branch_lengths(large, 0, seed=1, device=DEV)
+        rows["InferBranchLengths[N=2048]"] = profiled(infer)
+        rows["InferBranchLengths[N=2048]"]["mcmc"] = STAGES[-1]["mcmc"]
     emit("profile", note="wall time includes the profiler's overhead; "
          "top = [kernel, device ms, calls]", **rows)
 
 
 def phase_cpu_vs_card():
-    """The three stages at N = 64 on the card (kernels) and on the CPU
-    (plain versions) from the same files."""
+    """All seven stages at N = 64 on the card (kernels) and on the CPU
+    (plain versions) from the same files, through the entry points that
+    ``run_all`` calls, stage by stage so that what each stage wrote can be
+    held against the other device's."""
     from relate_tpu_torch.io import ancmut
     from relate_tpu_torch.io.chunking import ArtifactStore
     from relate_tpu_torch.pipeline import relate
@@ -534,11 +823,30 @@ def phase_cpu_vs_card():
             W = len(store.load_chunk(0).windows.boundaries) - 1
             cps = [np.load(store.path("chunk_0", f"paint_{w}.npz"))
                    for w in range(W)]
+
+            def section_bytes():
+                got = []
+                for w in range(W):
+                    with open(store.path("chunk_0", f"trees_{w}.anc"),
+                              "rb") as f:
+                        got.append(f.read())
+                return got
             trees = [len(ancmut.read_anc_bin(
                 store.path("chunk_0", f"trees_{w}.anc")).seq)
                 for w in range(W)]
-            out[dev] = (W, [{k: z[k] for k in z.files} for z in cps], trees)
-    (Wc, cps_c, trees_c), (Wh, cps_h, trees_h) = out[DEV], out["cpu"]
+            built = section_bytes()
+            relate.find_equivalent_branches(store, 0, device=dev)
+            matched = section_bytes()
+            relate.infer_branch_lengths(store, 0, seed=1, device=dev)
+            relate.combine_sections(store, 0)
+            final = os.path.join(tmp, "final_" + dev)
+            relate.finalize(store, final)
+            totals = [float(mt.tree.branch_length.sum())
+                      for mt in ancmut.read_anc_text(final + ".anc").seq]
+            out[dev] = (W, [{k: z[k] for k in z.files} for z in cps], trees,
+                        built, matched, totals)
+    (Wc, cps_c, trees_c, built_c, matched_c, tot_c) = out[DEV]
+    (Wh, cps_h, trees_h, built_h, matched_h, tot_h) = out["cpu"]
     if Wc != Wh or Wc < 2:
         fail(f"cpu_vs_card: windows {Wc} on the card, {Wh} on the CPU")
     worst = 0.0
@@ -566,44 +874,82 @@ def phase_cpu_vs_card():
                  f"{trees_h} on the CPU")
         note = ("differ within the accept/revert noise of summation order "
                 "(float32 posterior rows feed a discrete merge list)")
+    # the matcher is deterministic and integer-valued: where BuildTopology
+    # wrote the same bytes on both devices, so must FindEquivalentBranches
+    same_built = built_c == built_h
+    if same_built and matched_c != matched_h:
+        bad = [w for w in range(Wc) if matched_c[w] != matched_h[w]]
+        fail("cpu_vs_card: FindEquivalentBranches wrote other bytes on the "
+             f"card than on the CPU in sections {bad}")
+    # Branch lengths are posterior means over a finite chain, and the two
+    # devices draw other random numbers: tree by tree the total length
+    # agrees within the chain's noise. The tolerance is 25 % for the median
+    # tree and 100 % for the worst: a tree's total is dominated by its few
+    # oldest branches, whose running means are the noisiest, and the worst
+    # tree's difference is heavy-tailed (on the CPU, seed against seed, 5 to
+    # 13 % for the median tree and 35 to 49 % for the worst of 16 trees of
+    # 12 leaves). A fault in an acceptance ratio moves every total.
+    length = {}
+    if len(tot_c) == len(tot_h):
+        rel = np.abs(np.array(tot_c) - np.array(tot_h)) / np.array(tot_h)
+        length = dict(median_rel=float(np.median(rel)),
+                      max_rel=float(rel.max()))
+        if not (length["median_rel"] <= 0.25 and length["max_rel"] <= 1.0):
+            fail(f"cpu_vs_card: total branch lengths differ: {length}")
+    else:
+        rel = abs(np.mean(tot_c) - np.mean(tot_h)) / np.mean(tot_h)
+        length = dict(mean_rel=float(rel))
+        if not rel <= 0.25:
+            fail(f"cpu_vs_card: mean total branch length differs by {rel}")
     emit("cpu_vs_card", N=N, L=int(G.shape[0]), windows=Wc,
          checkpoint_max_abs_err_normalised=worst, trees_card=trees_c,
-         trees_cpu=trees_h, tree_counts=note)
+         trees_cpu=trees_h, tree_counts=note,
+         build_topology_bytes_equal=same_built,
+         find_equivalent_branches_bytes_equal=matched_c == matched_h,
+         total_branch_length=length)
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="kernels,main_path,cpu_vs_card")
+    ap.add_argument("--phases",
+                    default="kernels,main_path,run_all,cpu_vs_card")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card "
              "and does not fall back to the CPU")
     import relate_tpu_torch  # noqa: F401 - fail before any output without it
-    torch.backends.cuda.matmul.allow_tf32 = False   # 0/1 operands stay exact
     smi_line = phase_device()
     phase_build()
     from relate_tpu_torch.io.chunking import plan_chunks_and_windows
     from relate_tpu_torch.utils.devmem import auto_memory_gb
-    G, bp = make_panel()
-    # the budget the card's memory gives; if this panel then has fewer than
-    # 3 windows, a smaller budget is passed so that both capture kernels
-    # have work (a middle window has a forward and a backward checkpoint)
-    memory_auto = memory_gb = auto_memory_gb()
-    if len(plan_chunks_and_windows(G, memory_gb)[1][0].boundaries) - 1 < 3:
-        memory_gb = SMALLER_MEMORY_GB
-    emit("inputs", N=int(G.shape[1]), L=int(G.shape[0]), seed=SEED,
-         memory_gb_from_card=round(memory_auto, 3), memory_gb=memory_gb)
+    # each panel gets the budget the card's memory gives; if it then has
+    # fewer than 3 windows, a smaller budget is passed so that both capture
+    # kernels have work (a middle window has a forward and a backward
+    # checkpoint) and FindEquivalentBranches crosses a window boundary
+    memory_auto = auto_memory_gb()
+    panels = {}
+    for N in (N_HAP, N_LARGE):
+        G, bp = make_panel(N)
+        memory_gb = memory_auto
+        if len(plan_chunks_and_windows(G, memory_gb)[1][0].boundaries) - 1 < 3:
+            memory_gb = SMALLER_MEMORY_GB
+        panels[N] = (G, bp, memory_gb)
+    emit("inputs", L=L_SNPS, seed=SEED,
+         memory_gb_from_card=round(memory_auto, 3),
+         memory_gb={N: p[2] for N, p in panels.items()})
     kernels = []
     if "kernels" in phases:
-        kernels = phase_kernels(G, bp, memory_gb)
+        kernels = phase_kernels(panels)
         torch.cuda.empty_cache()
     if "main_path" in phases:
-        phase_main_path(G, bp, memory_gb, kernels)
+        phase_main_path(*panels[N_HAP], kernels)
+    if "run_all" in phases:
+        phase_run_all(*panels[N_LARGE], kernels)
     if "cpu_vs_card" in phases:
         phase_cpu_vs_card()
     if "profile" in phases:
-        phase_profile(G, bp, memory_gb)
+        phase_profile(panels)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

@@ -3,8 +3,9 @@
 The artifact store (``chunk_<c>.npz``, ``paint_<w>.npz``, ``trees_<w>.anc``,
 ``muts_<w>.mut``) is byte-compatible between the two packages, so a store
 written by one is read by the other without this module. What it adds is
-the in-memory state: a painting checkpoint, a target plan and a window
-posterior, each read out of the JAX objects as NumPy arrays by the caller
+the in-memory state: a painting checkpoint, a target plan, a window
+posterior, a marginal tree and the static arrays and the state of an MCMC
+chain batch, each read out of the JAX objects as NumPy arrays by the caller
 (this module imports nothing of the JAX package) and rebuilt as the port's
 objects on a device.
 """
@@ -13,7 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.mcmc import ChainState, ChainStatic
 from .core.painting import Checkpoint, PaintOutput, TargetPlan
+from .core.trees import Tree
 from .utils.devmem import resolve_device
 
 
@@ -67,3 +70,42 @@ def paint_output_from_numpy(topology, logscale, ls_base, targets, idx, seqk,
     return PaintOutput(topology=_tensor(topology, np.float32, device),
                        logscale=_tensor(logscale, np.float32, device),
                        ls_base=np.asarray(ls_base, np.float64), plan=plan)
+
+
+def tree_from_numpy(parent, child_left, child_right, branch_length=None,
+                    num_events=None, SNP_begin=None, SNP_end=None) -> Tree:
+    """The port's ``Tree`` from the arrays of ``relate_tpu.core.trees.Tree``
+    (copies, so that neither package's sweeps write into the other's)."""
+    def cp(a, dt):
+        return None if a is None else np.array(a, dtype=dt)
+    return Tree(cp(parent, np.int32), cp(child_left, np.int32),
+                cp(child_right, np.int32), cp(branch_length, np.float64),
+                cp(num_events, np.float32), cp(SNP_begin, np.int32),
+                cp(SNP_end, np.int32))
+
+
+def chain_static_from_numpy(parent, child_left, child_right, num_events,
+                            mut_rate, kc2_pos, epochs, rates, cumR, depth,
+                            device=None) -> ChainStatic:
+    """The port's ``ChainStatic`` from the fields of the JAX one (index
+    arrays become int64 tensors, the rest float32)."""
+    device = resolve_device(device)
+    i64 = lambda a: _tensor(a, np.int64, device)      # noqa: E731
+    f32 = lambda a: _tensor(a, np.float32, device)    # noqa: E731
+    return ChainStatic(
+        parent=i64(parent), child_left=i64(child_left),
+        child_right=i64(child_right), num_events=f32(num_events),
+        mut_rate=f32(mut_rate), kc2_pos=f32(kc2_pos), epochs=f32(epochs),
+        rates=f32(rates), cumR=f32(cumR), depth=i64(depth))
+
+
+def chain_state_from_numpy(coords, order, sorted_idx, cs, ssum, scomp, count,
+                           cprop, device=None) -> ChainState:
+    """The port's ``ChainState`` from the fields of the JAX one."""
+    device = resolve_device(device)
+    f32 = lambda a: _tensor(a, np.float32, device)    # noqa: E731
+    return ChainState(
+        coords=f32(coords), order=_tensor(order, np.int64, device),
+        sorted_idx=_tensor(sorted_idx, np.int64, device), cs=f32(cs),
+        ssum=f32(ssum), scomp=f32(scomp), count=f32(count),
+        cprop=_tensor(cprop, np.int32, device))

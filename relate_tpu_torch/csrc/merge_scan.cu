@@ -1,6 +1,11 @@
-// Dense MinMatch merge scan for sm_90a (N <= 1024).
+// Dense MinMatch merge scan for sm_90a (N <= 2048), two entry points.
 //
-// Replaces the TPU kernel relate_tpu/ops/merge_scan.py:_kernel. The scan is a
+// merge_scan_launch replaces the TPU kernel relate_tpu/ops/merge_scan.py:
+// _kernel (N <= 1024: merge lists and clade rows). merge_scan_large_launch
+// replaces _kernel_large (1024 < N <= 2048: the same selection rule and tie
+// hash, merge lists only; no clade-set state is kept and the caller rebuilds
+// the clade rows from the lists). Both run the same three kernels; the last
+// one is instantiated with and without the clade rows. The scan is a
 // chain of N-1 steps; each step reduces over the whole live matrix, picks one
 // pair and updates one row and one column, so the steps cannot overlap. Each
 // step is three small launches on the caller's stream (no host round trip:
@@ -12,13 +17,22 @@
 //              and its best fallback candidate
 //   merge_step one block: reduces the per-row candidates, then updates row j,
 //              then column j (which reads the updated row), sizes, labels,
-//              clade rows and the merge lists
+//              the merge lists and (CLADES only) the clade rows
 // d is not symmetric, so its transpose dt is kept beside it (and dcft beside
 // dcf): pair_best then reads d[b][a] as dt[a][b], contiguous like the rest.
 //
-// Bound: latency of the 3(N-1) dependent launches. The byte bound (every
-// live entry of d, dt, dcf, dcft read once per step) is loose: at N = 1024
-// the four matrices are 16 MB and stay in the L2 cache.
+// Bound: latency of the 3(N-1) dependent launches. At N = 1024 the four
+// matrices are 16 MB and stay in the 50 MB L2 cache, so the byte reckoning
+// (every live entry of d, dt, dcf, dcft read once per step) is loose there.
+// At N = 2048 they are 67 MB, more than the L2: the early steps of the large
+// entry point stream the live entries from device memory, and that byte
+// reckoning is then a real bound beside the launch latency. The one-block
+// merge_step column pass reads with a stride of 4N bytes over N rows of four
+// matrices and is the slowest of the three at both sizes.
+//
+// Every loop over a row or a column strides by the block size and checks
+// b < N, so any N (no multiple of the block sizes needed) is handled by the
+// loop tails. Flat indices a * N + b stay inside int up to N = 2048 (4.2 M).
 //
 // The merge list is discrete: a 1-ulp difference in w*x + (1-w)*y can flip a
 // later merge. This file is built with -fmad=false so that the expression
@@ -155,6 +169,7 @@ pair_best_kernel(const float* __restrict__ d, const float* __restrict__ dt,
     if (threadIdx.x == 0) { best_mut[a] = bm; best_sym[a] = bs; }
 }
 
+template <bool CLADES>
 __global__ void __launch_bounds__(STEP_THREADS)
 merge_step_kernel(float* __restrict__ d, float* __restrict__ dt,
                   float* __restrict__ dcf, float* __restrict__ dcft,
@@ -197,15 +212,17 @@ merge_step_kernel(float* __restrict__ d, float* __restrict__ dt,
     const float w = s_w, w1 = 1.0f - w;
     const size_t ri = (size_t)i * N, rj = (size_t)j * N;
 
-    // row j of every matrix, and the clade row
+    // row j of every matrix, and (CLADES) the clade row
     for (int c = tid; c < N; c += STEP_THREADS) {
         d[rj + c] = w * d[ri + c] + w1 * d[rj + c];
         dt[rj + c] = w * dt[ri + c] + w1 * dt[rj + c];
         dcf[rj + c] = w * dcf[ri + c] + w1 * dcf[rj + c];
         dcft[rj + c] = w * dcft[ri + c] + w1 * dcft[rj + c];
-        const float cl = csets[ri + c] + csets[rj + c];
-        csets[rj + c] = cl;
-        clades[(size_t)t * N + c] = cl;
+        if (CLADES) {
+            const float cl = csets[ri + c] + csets[rj + c];
+            csets[rj + c] = cl;
+            clades[(size_t)t * N + c] = cl;
+        }
     }
     __syncthreads();
     // column j reads the updated row j (entries (j, i) and (j, j))
@@ -216,6 +233,34 @@ merge_step_kernel(float* __restrict__ d, float* __restrict__ dt,
         dcf[rr + j] = w * dcf[rr + i] + w1 * dcf[rr + j];
         dcft[rr + j] = w * dcft[rr + i] + w1 * dcft[rr + j];
     }
+}
+
+// One step = three launches; all N - 1 steps are enqueued on `stream`.
+template <bool CLADES>
+int run_scan(void* d, void* dt, void* dcf, void* dcft, void* active,
+             void* sizes, void* conv, void* csets, void* mv, void* mvcf,
+             void* best, void* cis, void* cjs, void* clades, int N, int use_cf,
+             float threshold, float threshold_cf, int seed, void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    Cand* best_mut = (Cand*)best;
+    Cand* best_sym = best_mut + N;
+    for (int t = 0; t < N - 1; ++t) {
+        row_min_kernel<<<N, ROW_THREADS, 0, st>>>(
+            (const float*)d, (const float*)dcf, (const int*)active,
+            (float*)mv, (float*)mvcf, N, threshold, threshold_cf);
+        pair_best_kernel<<<N, ROW_THREADS, 0, st>>>(
+            (const float*)d, (const float*)dt, (const float*)dcf,
+            (const float*)dcft, (const int*)active, (const float*)mv,
+            (const float*)mvcf, best_mut, best_sym, N, use_cf,
+            (uint32_t)seed, (uint32_t)t);
+        merge_step_kernel<CLADES><<<1, STEP_THREADS, 0, st>>>(
+            (float*)d, (float*)dt, (float*)dcf, (float*)dcft, (int*)active,
+            (float*)sizes, (int*)conv, (float*)csets, best_mut, best_sym,
+            (int*)cis, (int*)cjs, (float*)clades, N, t);
+        const cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+    }
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -231,24 +276,21 @@ extern "C" int merge_scan_launch(void* d, void* dt, void* dcf, void* dcft,
                                  void* cis, void* cjs, void* clades, int N,
                                  int use_cf, float threshold,
                                  float threshold_cf, int seed, void* stream) {
-    cudaStream_t st = (cudaStream_t)stream;
-    Cand* best_mut = (Cand*)best;
-    Cand* best_sym = best_mut + N;
-    for (int t = 0; t < N - 1; ++t) {
-        row_min_kernel<<<N, ROW_THREADS, 0, st>>>(
-            (const float*)d, (const float*)dcf, (const int*)active,
-            (float*)mv, (float*)mvcf, N, threshold, threshold_cf);
-        pair_best_kernel<<<N, ROW_THREADS, 0, st>>>(
-            (const float*)d, (const float*)dt, (const float*)dcf,
-            (const float*)dcft, (const int*)active, (const float*)mv,
-            (const float*)mvcf, best_mut, best_sym, N, use_cf,
-            (uint32_t)seed, (uint32_t)t);
-        merge_step_kernel<<<1, STEP_THREADS, 0, st>>>(
-            (float*)d, (float*)dt, (float*)dcf, (float*)dcft, (int*)active,
-            (float*)sizes, (int*)conv, (float*)csets, best_mut, best_sym,
-            (int*)cis, (int*)cjs, (float*)clades, N, t);
-        const cudaError_t e = cudaGetLastError();
-        if (e != cudaSuccess) return (int)e;
-    }
-    return (int)cudaGetLastError();
+    return run_scan<true>(d, dt, dcf, dcft, active, sizes, conv, csets, mv,
+                          mvcf, best, cis, cjs, clades, N, use_cf, threshold,
+                          threshold_cf, seed, stream);
+}
+
+// The same scan without clade sets and clade rows (N <= 2048): outputs cis,
+// cjs (N-1) int32 only.
+extern "C" int merge_scan_large_launch(void* d, void* dt, void* dcf,
+                                       void* dcft, void* active, void* sizes,
+                                       void* conv, void* mv, void* mvcf,
+                                       void* best, void* cis, void* cjs, int N,
+                                       int use_cf, float threshold,
+                                       float threshold_cf, int seed,
+                                       void* stream) {
+    return run_scan<false>(d, dt, dcf, dcft, active, sizes, conv, nullptr, mv,
+                           mvcf, best, cis, cjs, nullptr, N, use_cf, threshold,
+                           threshold_cf, seed, stream);
 }

@@ -9,21 +9,24 @@ Formats (behavioral reference):
   ``tree_index;branch_index;is_mapping;is_flipped;age_of_mutation`` then
   ``tree;b1[ b2...];is_not_mapping;flipped;age_begin;age_end;``.
 
-The text ``.anc`` and the final ``.mut`` belong to Finalize and are not in
-this package yet.
+- text .anc (anc.cpp:760-815, Dump): ``NUM_HAPLOTYPES N [ages]``,
+  ``NUM_TREES T``, then per tree ``pos: parent:(branch_length num_events
+  SNP_begin SNP_end) ...``.
+- final .mut (Finalize.cpp:98-183): ``FINAL_MUT_HEADER`` and one
+  ``;``-separated row per SNP.
 """
 from __future__ import annotations
 
 import contextlib
 import os
 import struct
-from typing import List
+from typing import List, Optional, TextIO
 
 import numpy as np
 
 from ..core.topology import MutationRecord
 from ..core.trees import (AncesTree, MarginalTree, Tree,
-                          children_from_parent_batch)
+                          children_from_parent, children_from_parent_batch)
 from .haps import smart_open
 
 
@@ -115,6 +118,77 @@ def read_anc_bin(path: str) -> AncesTree:
                       num_events=ne_b[t], SNP_begin=sb_b[t],
                       SNP_end=se_b[t])
             seq.append(MarginalTree(pos=int(pos_v[t]), tree=tr))
+    return AncesTree(N=N, seq=seq, sample_ages=ages)
+
+
+# ---------------------------------------------------------------------------
+# text .anc
+# ---------------------------------------------------------------------------
+
+def _fmt_g5(x: float) -> str:
+    """%.5f-style like the reference's Dump (anc.cpp:810)."""
+    return f"{x:.5f}"
+
+
+def write_anc_text(path: str, anc: AncesTree,
+                   num_trees: Optional[int] = None):
+    with open(path, "w") as f:
+        if anc.sample_ages is None or len(anc.sample_ages) == 0:
+            f.write(f"NUM_HAPLOTYPES {anc.N}\n")
+        else:
+            f.write(f"NUM_HAPLOTYPES {anc.N} "
+                    + " ".join(f"{a:f}" for a in anc.sample_ages) + " \n")
+        f.write(f"NUM_TREES "
+                f"{num_trees if num_trees is not None else len(anc.seq)}\n")
+        for mt in anc.seq:
+            write_anc_tree_line(f, mt)
+
+
+def write_anc_tree_line(f: TextIO, mt: MarginalTree):
+    t = mt.tree
+    parts = [f"{mt.pos}:"]
+    # plain Python numbers format several times faster than numpy scalars
+    for p, bl, ne, sb, se in zip(
+            t.parent.tolist(), np.asarray(t.branch_length, np.float64).tolist(),
+            np.asarray(t.num_events, np.float64).tolist(),
+            t.SNP_begin.tolist(), t.SNP_end.tolist()):
+        parts.append(f"{p}:({_fmt_g5(bl)} {ne:.3f} {sb} {se})")
+    f.write(" ".join(parts) + " \n")
+
+
+def read_anc_text(path: str) -> AncesTree:
+    with smart_open(path) as f:
+        header = f.readline().split()
+        N = int(header[1])
+        ages = None
+        if len(header) > 2:
+            ages = np.asarray([float(x) for x in header[2:]])
+        num_trees = int(f.readline().split()[1])
+        M = 2 * N - 1
+        seq = []
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            pos_s, rest = line.split(":", 1)
+            toks = rest.replace("(", " ").replace(")", " ").replace(
+                ":", " ").split()
+            if len(toks) != 5 * M:
+                raise ValueError(
+                    f"{path}: tree at {pos_s} has {len(toks)} fields, "
+                    f"expected {5 * M}")
+            cols = np.asarray(toks).reshape(M, 5)
+            parent = cols[:, 0].astype(np.int32)
+            cl, cr = children_from_parent(parent)
+            seq.append(MarginalTree(pos=int(pos_s), tree=Tree(
+                parent=parent, child_left=cl, child_right=cr,
+                branch_length=cols[:, 1].astype(np.float64),
+                num_events=cols[:, 2].astype(np.float32),
+                SNP_begin=cols[:, 3].astype(np.int32),
+                SNP_end=cols[:, 4].astype(np.int32))))
+        if len(seq) != num_trees:
+            raise ValueError(f"{path}: {len(seq)} trees, header says "
+                             f"{num_trees}")
     return AncesTree(N=N, seq=seq, sample_ages=ages)
 
 
@@ -211,3 +285,42 @@ def get_age(anc: AncesTree, muts: List[MutationRecord]):
     for k, i in enumerate(sel):
         muts[i].age_begin = ab[k]
         muts[i].age_end = ae[k]
+
+
+# ---------------------------------------------------------------------------
+# final .mut
+# ---------------------------------------------------------------------------
+
+FINAL_MUT_HEADER = ("snp;pos_of_snp;dist;rs-id;tree_index;branch_indices;"
+                    "is_not_mapping;is_flipped;age_begin;age_end;"
+                    "ancestral_allele/alternative_allele;")
+
+
+def write_mut_final(path: str, rows: List[str], extra_header: str = ""):
+    """``extra_header`` is the .annot header appended to the standard one
+    when Finalize joins annotations (Finalize.cpp:97-99)."""
+    with open(path, "w") as f:
+        f.write(FINAL_MUT_HEADER + extra_header + "\n")
+        for r in rows:
+            f.write(r + "\n")
+
+
+def read_mut_final(path: str):
+    """Parse a final .mut into a list of dicts."""
+    out = []
+    with smart_open(path) as f:
+        next(f)
+        for line in f:
+            line = line.rstrip("\n")
+            if not line:
+                continue
+            p = line.split(";")
+            out.append({
+                "snp": int(p[0]), "pos": int(p[1]), "dist": int(p[2]),
+                "rsid": p[3], "tree": int(p[4]),
+                "branch": [int(x) for x in p[5].split()] if p[5] else [],
+                "is_not_mapping": int(p[6]), "flipped": int(p[7]),
+                "age_begin": float(p[8]), "age_end": float(p[9]),
+                "alleles": p[10] if len(p) > 10 else "",
+            })
+    return out

@@ -1,4 +1,4 @@
-"""MinMatch merge scan: CUDA kernel (N <= 1024) and its plain version.
+"""MinMatch merge scan: the CUDA kernels (N <= 2048) and the plain version.
 
 Counterpart of ``relate_tpu/ops/merge_scan.py`` (behavioural reference
 ``include/src/tree_builder.cpp``). The scan runs N-1 sequential steps on a
@@ -9,17 +9,21 @@ symmetric argmin when no pair is mutual, ties broken by an integer hash of
 (min, max, seed, step) and then by the smallest flat index, and a
 size-weighted merge of row j and then column j.
 
-Which TPU kernel this replaces: ``_kernel`` (``merge_scan.py:46``). What
-bounds it on the card: the latency of a chain of N-1 dependent steps, each
-of which reduces over the whole live matrix; the bytes (four N x N float32
-matrices, 16 MB at N = 1024) stay in the L2 cache. What the design does
-about it: ``csrc/merge_scan.cu`` enqueues three small launches per step from
-one C call, with the chosen pair kept on the card, so the host never waits
-inside the scan.
+Which TPU kernels this replaces: ``_kernel`` (``merge_scan.py:46``, N <=
+``MAX_N_SMALL``: merge lists and clade rows) and ``_kernel_large``
+(``merge_scan.py:164``, ``MAX_N_SMALL`` < N <= ``MAX_N_LARGE``: merge lists
+only, the clade rows rebuilt outside by ``clades_from_merges``). What bounds
+them on the card: the latency of a chain of N-1 dependent steps, each of
+which reduces over the whole live matrix. The four N x N float32 matrices
+are 16 MB at N = 1024 and stay in the 50 MB L2 cache; at N = 2048 they are
+67 MB, so the early steps of the large route also pay for device-memory
+traffic. What the design does about it: ``csrc/merge_scan.cu`` enqueues
+three small launches per step from one C call, with the chosen pair kept on
+the card, so the host never waits inside the scan.
 
-Sizes above 1024 are the routes of the two TPU kernels that are not ported
-yet (``_kernel_large`` for N <= 2048, the incremental kernel of
-``merge_scan_inc.py`` above) and raise ``NotImplementedError``.
+Sizes above ``MAX_N_LARGE`` are the route of the TPU kernel that is not
+ported yet (B7, the incremental kernel of ``merge_scan_inc.py``) and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -30,9 +34,10 @@ import torch
 from . import _build
 
 INF = 3.0e38   # a large finite float32, not infinity (as the JAX kernel)
-MAX_N = 1024
+MAX_N_SMALL = 1024   # up to here the kernel that also emits the clade rows
+MAX_N_LARGE = 2048   # up to here the kernel without clade state
 
-launches = {"merge_scan": 0}
+launches = {"merge_scan": 0, "merge_scan_large": 0}
 
 _M32 = 0xFFFFFFFF
 
@@ -48,12 +53,15 @@ def _tie_hash(seed: int, t: int, lo: torch.Tensor, hi: torch.Tensor):
     return (h & 0x7FFFFF).to(torch.float32)
 
 
-def merge_scan_plain(d, dcf, use_cf, threshold, threshold_cf, seed):
+def merge_scan_plain(d, dcf, use_cf, threshold, threshold_cf, seed,
+                     with_clades: bool = True):
     """The scan step by step in PyTorch, on the device of ``d``.
 
     d, dcf: (N, N) float32. Returns (cis (N-1,) int32, cjs (N-1,) int32,
-    clades (N-1, N) float32). Node ids: [0, N) leaves, N+t the cluster born
-    at step t.
+    clades (N-1, N) float32), or the two merge lists alone with
+    ``with_clades=False`` (the plain version of the large kernel, which
+    keeps no clade state). Node ids: [0, N) leaves, N+t the cluster born at
+    step t.
     """
     N = d.shape[0]
     dev = d.device
@@ -73,9 +81,10 @@ def merge_scan_plain(d, dcf, use_cf, threshold, threshold_cf, seed):
     active = torch.ones(N, dtype=torch.bool, device=dev)
     sizes = [1.0] * N
     conv = list(range(N))
-    csets = torch.eye(N, dtype=torch.float32, device=dev)
     cis, cjs = [], []
-    clades = torch.empty((N - 1, N), dtype=torch.float32, device=dev)
+    if with_clades:
+        csets = torch.eye(N, dtype=torch.float32, device=dev)
+        clades = torch.empty((N - 1, N), dtype=torch.float32, device=dev)
     one = torch.ones((), dtype=torch.float32, device=dev)
     for t in range(N - 1):
         mask2 = active[:, None] & active[None, :] & offdiag
@@ -108,57 +117,53 @@ def merge_scan_plain(d, dcf, use_cf, threshold, threshold_cf, seed):
             mat[j, :] = w * mat[i, :] + w1 * mat[j, :]
             # the column update reads the updated row j
             mat[:, j] = w * mat[:, i] + w1 * mat[:, j]
-        clade = csets[i] + csets[j]
-        csets[j] = clade
-        clades[t] = clade
+        if with_clades:
+            clade = csets[i] + csets[j]
+            csets[j] = clade
+            clades[t] = clade
         cis.append(conv[i])
         cjs.append(conv[j])
         sizes[j] = sizes[i] + sizes[j]
         conv[j] = N + t
         active[i] = False
-    return (torch.tensor(cis, dtype=torch.int32, device=dev),
-            torch.tensor(cjs, dtype=torch.int32, device=dev), clades)
+    cis = torch.tensor(cis, dtype=torch.int32, device=dev)
+    cjs = torch.tensor(cjs, dtype=torch.int32, device=dev)
+    return (cis, cjs, clades) if with_clades else (cis, cjs)
 
 
 def clades_from_merges(cis, cjs, N: int):
     """(N-1, N) clade leaf-indicator rows from the merge lists. Node ids:
-    [0, N) leaves, N+t the cluster born at step t."""
+    [0, N) leaves, N+t the cluster born at step t.
+
+    Every leaf walks up its chain of ancestors, all leaves at once: one
+    round (a gather and a scatter of N elements, one ``any()`` download) per
+    level of the tree, not one launch per merge. The rows are exact 0/1
+    values, as the sums of disjoint indicator rows are."""
     dev = cis.device
-    C = torch.cat([torch.eye(N, dtype=torch.float32, device=dev),
-                   torch.zeros((N - 1, N), dtype=torch.float32, device=dev)])
-    ci = cis.tolist()
-    cj = cjs.tolist()
-    for t in range(N - 1):
-        C[N + t] = C[ci[t]] + C[cj[t]]
-    return C[N:]
+    born = torch.arange(N, 2 * N - 1, device=dev, dtype=torch.int64)
+    parent = torch.full((2 * N - 1,), -1, dtype=torch.int64, device=dev)
+    parent[cis.long()] = born
+    parent[cjs.long()] = born
+    C = torch.zeros((N - 1, N), dtype=torch.float32, device=dev)
+    leaf = torch.arange(N, device=dev, dtype=torch.int64)
+    anc = parent[:N].clone()
+    while True:
+        live = anc >= 0
+        if not bool(live.any()):
+            return C
+        C[anc[live] - N, leaf[live]] = 1.0
+        anc = torch.where(live, parent[anc.clamp(min=0)], anc)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int, ctypes.c_int,
-                                       ctypes.c_float, ctypes.c_float,
-                                       ctypes.c_int, ctypes.c_void_p]
-
-
-def _fn():
-    fn = _build.load("merge_scan").merge_scan_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def merge_scan(d, dcf, use_cf, threshold, threshold_cf, seed):
-    """MinMatch merge scan (replaces ``merge_scan_pallas`` for N <= 1024).
-
-    d, dcf: (N, N) float32 contiguous tensors on one device; neither is
-    modified. Returns (cis, cjs (N-1,) int32, clades (N-1, N) float32).
-    """
+def _check_inputs(d, dcf):
     if d.dim() != 2 or d.shape[0] != d.shape[1]:
         raise ValueError(f"d must be square, got {tuple(d.shape)}")
     N = d.shape[0]
-    if N > MAX_N:
+    if N > MAX_N_LARGE:
         raise NotImplementedError(
-            f"merge scan for N = {N} > {MAX_N}: the routes of the TPU kernels "
-            "B6 (_kernel_large, N <= 2048) and B7 (the incremental kernel of "
-            "merge_scan_inc.py) are not ported yet")
+            f"merge scan for N = {N} > {MAX_N_LARGE}: the route of the TPU "
+            "kernel B7 (the incremental kernel of merge_scan_inc.py) is not "
+            "ported yet")
     if N < 2:
         raise ValueError("merge scan needs N >= 2")
     for name, t in (("d", d), ("dcf", dcf)):
@@ -170,9 +175,26 @@ def merge_scan(d, dcf, use_cf, threshold, threshold_cf, seed):
             raise ValueError(f"{name} must be contiguous")
     if dcf.device != d.device:
         raise ValueError("d and dcf must be on one device")
-    if d.device.type == "cpu":
-        return merge_scan_plain(d, dcf, use_cf, threshold, threshold_cf, seed)
+    return N
 
+
+def _fn(large: bool):
+    lib = _build.load("merge_scan")
+    fn = lib.merge_scan_large_launch if large else lib.merge_scan_launch
+    # d, dt, dcf, dcft, active, sizes, conv, [csets,] mv, mvcf, best, cis,
+    # cjs, [clades]
+    fn.argtypes = ([ctypes.c_void_p] * (12 if large else 14)
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(d, dcf, use_cf, threshold, threshold_cf, seed, large: bool):
+    """Enqueue one scan on the card of ``d``: the kernel with the clade rows
+    (returns cis, cjs, clades) or, with ``large``, the one without (returns
+    cis, cjs)."""
+    N = d.shape[0]
     dev = d.device
     # working copies, updated in place by the kernel; the transposes make
     # every "column" read of a step contiguous
@@ -181,20 +203,54 @@ def merge_scan(d, dcf, use_cf, threshold, threshold_cf, seed):
     active = torch.ones(N, dtype=torch.int32, device=dev)
     sizes = torch.ones(N, dtype=torch.float32, device=dev)
     conv = torch.arange(N, dtype=torch.int32, device=dev)
-    csets = torch.eye(N, dtype=torch.float32, device=dev)
     mv = torch.empty(N, dtype=torch.float32, device=dev)
     mvcf = torch.empty(N, dtype=torch.float32, device=dev)
     best = torch.empty(2 * N * 3, dtype=torch.int32, device=dev)
     cis = torch.empty(N - 1, dtype=torch.int32, device=dev)
     cjs = torch.empty(N - 1, dtype=torch.int32, device=dev)
-    clades = torch.empty((N - 1, N), dtype=torch.float32, device=dev)
-    p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    state = [dw, dtw, cw, ctw, active, sizes, conv]
+    outs = [mv, mvcf, best, cis, cjs]
+    if not large:
+        state.append(torch.eye(N, dtype=torch.float32, device=dev))
+        outs.append(torch.empty((N - 1, N), dtype=torch.float32, device=dev))
+    name = "merge_scan_large" if large else "merge_scan"
     with torch.cuda.device(dev):
         st = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        err = _fn()(p(dw), p(dtw), p(cw), p(ctw), p(active), p(sizes),
-                    p(conv), p(csets), p(mv), p(mvcf), p(best), p(cis),
-                    p(cjs), p(clades), N, 1 if use_cf else 0,
-                    float(threshold), float(threshold_cf), int(seed), st)
-    launches["merge_scan"] += 1
-    _build.check(err, "merge_scan")
-    return cis, cjs, clades
+        err = _fn(large)(*(ctypes.c_void_p(t.data_ptr())
+                           for t in state + outs),
+                         N, 1 if use_cf else 0, float(threshold),
+                         float(threshold_cf), int(seed), st)
+    launches[name] += 1
+    _build.check(err, name)
+    return tuple(outs[3:])
+
+
+def merge_scan_large(d, dcf, use_cf, threshold, threshold_cf, seed):
+    """The scan without clade state (replaces ``_run_large``): merge lists
+    (cis, cjs (N-1,) int32) only, for any 2 <= N <= ``MAX_N_LARGE``. A CUDA
+    tensor goes to the kernel, a CPU tensor to the plain version."""
+    _check_inputs(d, dcf)
+    if d.device.type == "cpu":
+        return merge_scan_plain(d, dcf, use_cf, threshold, threshold_cf, seed,
+                                with_clades=False)
+    return _launch(d, dcf, use_cf, threshold, threshold_cf, seed, large=True)
+
+
+def merge_scan(d, dcf, use_cf, threshold, threshold_cf, seed):
+    """MinMatch merge scan (replaces ``merge_scan_pallas`` for N <=
+    ``MAX_N_LARGE``).
+
+    d, dcf: (N, N) float32 contiguous tensors on one device; neither is
+    modified. Returns (cis, cjs (N-1,) int32, clades (N-1, N) float32). Up to
+    ``MAX_N_SMALL`` one kernel emits all three; above it the large kernel
+    emits the merge lists and ``clades_from_merges`` rebuilds the clades
+    (the same lists and clades either way).
+    """
+    N = _check_inputs(d, dcf)
+    if N > MAX_N_SMALL:
+        cis, cjs = merge_scan_large(d, dcf, use_cf, threshold, threshold_cf,
+                                    seed)
+        return cis, cjs, clades_from_merges(cis, cjs, N)
+    if d.device.type == "cpu":
+        return merge_scan_plain(d, dcf, use_cf, threshold, threshold_cf, seed)
+    return _launch(d, dcf, use_cf, threshold, threshold_cf, seed, large=False)

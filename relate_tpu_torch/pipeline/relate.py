@@ -1,4 +1,6 @@
-"""The first three Relate stages: MakeChunks -> Paint -> BuildTopology.
+"""The Relate pipeline: MakeChunks -> Paint -> BuildTopology ->
+FindEquivalentBranches -> InferBranchLengths -> CombineSections -> Finalize,
+and ``run_all`` (``Relate --mode All``).
 
 Counterpart of ``relate_tpu/pipeline/relate.py`` (behavioural reference
 ``include/pipeline/Relate.cpp``). Stages communicate through the
@@ -7,25 +9,41 @@ staged-file design; each stage is independently callable (resume = rerun a
 stage). The store layout is the JAX package's, byte for byte, so either
 package reads a store the other wrote.
 
-Every entry point takes ``device=None``: the CUDA card, or an error if there
-is none. ``device="cpu"`` runs the plain PyTorch versions of the kernels.
+Every entry point that computes takes ``device=None``: the CUDA card, or an
+error if there is none. ``device="cpu"`` runs the plain PyTorch versions of
+the kernels. No environment variable picks a code path: what the JAX package
+reads from the environment is a function argument here, with its default.
 
-FindEquivalentBranches, InferBranchLengths, CombineSections and Finalize
-are not in this package yet.
+Not ported yet, and raising ``NotImplementedError``: PostProcess inside
+``run_all`` (``postprocess=True``), sample ages, the device mesh and the
+multi-host barrier of ``run_all``.
 """
 from __future__ import annotations
 
 import os
+import shutil
 from concurrent.futures import ThreadPoolExecutor
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
-from ..core import painting, topology_device
+from ..core import mcmc, painting, topology_device
+from ..core.branch_association import (associate_backward, associate_forward,
+                                       associate_trees)
+from ..core.branch_association_device import branch_association_many_device
+from ..core.trees import AncesTree, MarginalTree
 from ..io import ancmut, chunking
 from ..io import haps as hio
-from ..io.chunking import ArtifactStore
+from ..io.chunking import ArtifactStore, MERGE_DISCARD
 from ..utils.devmem import resolve_device
+from ..utils.trace import stage, summary
+
+# from this many windows on, FindEquivalentBranches streams a chunk window by
+# window and run_all hands no trees from stage to stage in memory
+STREAM_WINDOWS = 16
+# run_all keeps a chunk's painting checkpoints in memory for BuildTopology
+# while they stay below this many bytes
+CP_HANDOFF_BYTES = 4e9
 
 
 def make_chunks(haps_path: str, sample_path: str, map_path: str, outdir: str,
@@ -163,3 +181,389 @@ def build_topology(store: ArtifactStore, c: int, seed: int = 1,
             write_futs.append(pool.submit(_persist, w, res))
         for f in write_futs:
             f.result()
+
+
+def _read_section(store: ArtifactStore, c: int, w: int,
+                  cache: Optional[dict]) -> AncesTree:
+    if cache is not None and ("anc", c, w) in cache:
+        return cache[("anc", c, w)]
+    return ancmut.read_anc_bin(store.path(f"chunk_{c}", f"trees_{w}.anc"))
+
+
+def find_equivalent_branches(store: ArtifactStore, c: int,
+                             cache: Optional[dict] = None,
+                             stream_windows: int = STREAM_WINDOWS,
+                             device=None):
+    """Associate branches across all adjacent trees of a chunk (incl. window
+    boundaries) and propagate events/spans
+    (pipeline/FindEquivalentBranches.cpp). The matcher runs on ``device``
+    whatever the number of trees; its equivalences are those of the host
+    matcher.
+
+    ``cache``: run_all's in-memory stage handoff. Stages still WRITE every
+    artifact (the resume model is unchanged) but skip re-READING what the
+    previous stage just produced. A chunk of ``stream_windows`` windows or
+    more is streamed window by window instead (byte-identical output)."""
+    device = resolve_device(device)
+    ch = store.load_chunk(c)
+    W = ch.windows.num_windows
+    if W >= stream_windows:
+        return _find_equivalent_branches_streamed(store, c, W, device)
+
+    ancs = [_read_section(store, c, w, cache) for w in range(W)]
+    all_trees = [mt.tree for anc in ancs for mt in anc.seq]
+    eqs = branch_association_many_device(all_trees, device=device)
+    associate_trees(all_trees, eqs)
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        futs = [pool.submit(ancmut.write_anc_bin,
+                            store.path(f"chunk_{c}", f"trees_{w}.anc"),
+                            ancs[w]) for w in range(W)]
+        for f in futs:
+            f.result()
+    if cache is not None:
+        for w in range(W):
+            cache[("anc", c, w)] = ancs[w]
+
+
+def _find_equivalent_branches_streamed(store: ArtifactStore, c: int, W: int,
+                                       device):
+    """Streaming FindEquivalentBranches for long chunks: the in-memory path
+    holds EVERY window's trees at once; here at most two windows are
+    resident.
+
+    - forward pass (window order): match each window's adjacent pairs,
+      including the boundary pair with the previous window's last tree, and
+      run the forward association sweep continuing through the carried
+      boundary tree; write the window back (its trees now hold
+      forward-accumulated events/SNP_begin) and keep only the per-window
+      equivalence vectors.
+    - backward pass (reverse order): re-read each window, run the backward
+      sweep continuing through the carried boundary tree, write it back.
+
+    Byte-identical to the in-memory path (the sweeps factor exactly across
+    consecutive runs)."""
+    def path(w):
+        return store.path(f"chunk_{c}", f"trees_{w}.anc")
+
+    eqs_by_window: List[List[np.ndarray]] = []
+    prev_last = None       # last tree of the previous window
+    for w in range(W):
+        anc = ancmut.read_anc_bin(path(w))
+        trees = [mt.tree for mt in anc.seq]
+        run = ([prev_last] if prev_last is not None else []) + trees
+        eqs = branch_association_many_device(run, device=device)
+        associate_forward(run, eqs)
+        eqs_by_window.append(eqs)
+        ancmut.write_anc_bin(path(w), anc)
+        prev_last = trees[-1]
+    next_first = None      # first tree of the following window
+    next_eq = None         # equivalence of the boundary pair
+    for w in range(W - 1, -1, -1):
+        anc = ancmut.read_anc_bin(path(w))
+        trees = [mt.tree for mt in anc.seq]
+        # a window after the first starts with its boundary pair, which
+        # belongs to the run of the window before
+        eqs = eqs_by_window[w][1:] if w > 0 else eqs_by_window[w]
+        if next_first is not None:
+            associate_backward(trees + [next_first], eqs + [next_eq])
+        else:
+            associate_backward(trees, eqs)
+        ancmut.write_anc_bin(path(w), anc)
+        next_first = trees[0]
+        next_eq = eqs_by_window[w][0] if w > 0 else None
+
+
+def infer_branch_lengths(store: ArtifactStore, c: int, Ne: float = 3e4,
+                         mu: float = 1.25e-8, seed: int = 1,
+                         epochs: Optional[np.ndarray] = None,
+                         rates: Optional[np.ndarray] = None,
+                         first_section: int = 0,
+                         last_section: Optional[int] = None,
+                         cache: Optional[dict] = None, device=None):
+    """Branch-length MCMC per section (pipeline/InferBranchLengths.cpp);
+    the trees of a section are one batch of chains on ``device``.
+
+    With a coalescence-rate prior, epochs (generations) and rates
+    (per-generation) are normalized by the implied average Ne = 1/mean(rate)
+    into coalescent units (InferBranchLengths.cpp:86-152)."""
+    device = resolve_device(device)
+    ch = store.load_chunk(c)
+    W = ch.windows.num_windows
+    if last_section is None:
+        last_section = W - 1
+    if epochs is not None:
+        rts = np.asarray(rates, dtype=np.float64)
+        pos = rts[np.isfinite(rts) & (rts > 0)]
+        avg_ne = 1.0 / pos.mean()
+        Ne = avg_ne
+        rates = rts * avg_ne
+        epochs = np.asarray(epochs, dtype=np.float64) / avg_ne
+    ages = store.load_sample_ages(ch.N)
+    # overlap the per-section .anc reads/writes with the chain batches of
+    # neighbouring sections
+    windows = list(range(first_section, last_section + 1))
+    dist64 = ch.dist.astype(np.float64)
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        read_futs = {w: pool.submit(_read_section, store, c, w, cache)
+                     for w in windows[:2]}
+        write_futs = []
+        for i, w in enumerate(windows):
+            anc = read_futs.pop(w).result()
+            if i + 2 < len(windows):
+                nxt = windows[i + 2]
+                read_futs[nxt] = pool.submit(_read_section, store, c, nxt,
+                                             cache)
+            trees = [mt.tree for mt in anc.seq]
+            bl = mcmc.run_mcmc(trees, dist64, ch.L, Ne=Ne, mu=mu,
+                               seed=seed + 7919 * (c + 1) + w,
+                               epochs=epochs, rates=rates, sample_ages=ages,
+                               device=device)
+            for k, mt in enumerate(anc.seq):
+                mt.tree.branch_length = bl[k]
+            if cache is not None:
+                cache[("anc", c, w)] = anc
+            write_futs.append(pool.submit(
+                ancmut.write_anc_bin,
+                store.path(f"chunk_{c}", f"trees_{w}.anc"), anc))
+        for f in write_futs:
+            f.result()
+
+
+def combine_sections(store: ArtifactStore, c: int,
+                     cache: Optional[dict] = None):
+    """Splice per-section tree sequences + fill mutation ages
+    (pipeline/CombineSections.cpp). Host only."""
+    ch = store.load_chunk(c)
+    W = ch.windows.num_windows
+    seq: List[MarginalTree] = []
+    muts = []
+    ages = None
+    for w in range(W):
+        anc = _read_section(store, c, w, cache)
+        ages = anc.sample_ages
+        if cache is not None and ("muts", c, w) in cache:
+            mshort = cache[("muts", c, w)]
+        else:
+            mshort = ancmut.read_mut_short(store.path(f"chunk_{c}",
+                                                      f"muts_{w}.mut"))
+        off = len(seq)
+        for m in mshort:
+            m.tree += off
+        seq.extend(anc.seq)
+        muts.extend(mshort)
+    anc = AncesTree(N=ch.N, seq=seq, sample_ages=ages)
+    ancmut.get_age(anc, muts)
+    if cache is not None:
+        cache[("combined", c)] = (anc, muts)
+    ancmut.write_anc_bin(store.path(f"chunk_{c}", "combined.anc"), anc)
+    ancmut.write_mut_short(store.path(f"chunk_{c}", "combined.mut"), muts)
+    # completion sentinel: written last, after BOTH combined artifacts are
+    # atomically in place
+    with ancmut.atomic_write(store.path(f"chunk_{c}", "DONE")) as f:
+        f.write("ok\n")
+
+
+def _read_annot(path: str):
+    """Read a .annot file: header line + one row per SNP
+    (Finalize.cpp:61-84 joins these onto the final .mut)."""
+    with hio.smart_open(path) as f:
+        header = f.readline().rstrip("\n")
+        rows = [line.rstrip("\n") for line in f]
+    return header, rows
+
+
+def finalize(store: ArtifactStore, output: str, cleanup: bool = False,
+             annot_path: Optional[str] = None,
+             cache: Optional[dict] = None):
+    """Merge chunks dropping half-overlaps, write final text .anc/.mut
+    (pipeline/Finalize.cpp:107-290). With ``annot_path``, each kept SNP's
+    annotation row is appended to its .mut line and the annot header to the
+    .mut header (Finalize.cpp:98-183). Host only."""
+    plan, _ = store.load_plan()
+    props = np.load(store.path("props.npz"), allow_pickle=False)
+    rsid = props["rsid"]
+    anc_al = props["ancestral"]
+    alt_al = props["alternative"]
+    bp = props["bp"]
+    dist = props["dist"]
+
+    annot_header = None
+    annot_rows = None
+    if annot_path:
+        annot_header, annot_rows = _read_annot(annot_path)
+
+    mut_rows: List[str] = []
+    out_trees: List[MarginalTree] = []
+    num_trees_cum = 0
+    num_flips = 0
+    num_non_mapping = 0
+    sample_ages = None
+
+    for c in range(plan.num_chunks):
+        start_chunk = plan.start[c]
+        end_chunk = plan.end[c]
+        if cache is not None and ("combined", c) in cache:
+            anc, muts = cache[("combined", c)]
+        else:
+            anc = ancmut.read_anc_bin(store.path(f"chunk_{c}",
+                                                 "combined.anc"))
+            muts = ancmut.read_mut_short(store.path(f"chunk_{c}",
+                                                    "combined.mut"))
+        sample_ages = anc.sample_ages
+        ov = MERGE_DISCARD if c > 0 else 0
+        if plan.num_chunks > 1 and c + 1 != plan.num_chunks:
+            keep_end = end_chunk - MERGE_DISCARD
+        else:
+            keep_end = end_chunk
+
+        # ---- mutations -----------------------------------------------
+        first_tree = None
+        for local in range(ov, keep_end - start_chunk):
+            snp = start_chunk + local
+            m = muts[local]
+            if first_tree is None:
+                first_tree = m.tree
+            if m.is_not_mapping:
+                num_non_mapping += 1
+            if m.flipped:
+                num_flips += 1
+            tree_out = m.tree - first_tree + num_trees_cum
+            br = " ".join(str(b) for b in m.branch)
+            row = (
+                f"{snp};{bp[snp]};{dist[snp]};{rsid[snp]};{tree_out};{br};"
+                f"{1 if m.is_not_mapping else 0};{int(m.flipped)};"
+                f"{ancmut._fmt_g(m.age_begin)};{ancmut._fmt_g(m.age_end)};"
+                f"{anc_al[snp]}/{alt_al[snp]};")
+            if annot_rows is not None and snp < len(annot_rows):
+                row += annot_rows[snp]
+            mut_rows.append(row)
+
+        # ---- trees ---------------------------------------------------
+        seq = list(anc.seq)
+        if c > 0:
+            # drop leading trees fully inside the discarded overlap
+            while len(seq) > 1 and seq[1].pos <= MERGE_DISCARD:
+                seq.pop(0)
+            seq[0] = MarginalTree(pos=MERGE_DISCARD + start_chunk,
+                                  tree=seq[0].tree)
+        else:
+            seq[0] = MarginalTree(pos=start_chunk + seq[0].pos,
+                                  tree=seq[0].tree)
+        kept = [seq[0]]
+        for mt in seq[1:]:
+            pos = mt.pos + start_chunk
+            if pos < keep_end:
+                kept.append(MarginalTree(pos=pos, tree=mt.tree))
+        for mt in kept:
+            mt.tree.SNP_begin[:] = mt.tree.SNP_begin + start_chunk
+            mt.tree.SNP_end[:] = mt.tree.SNP_end + start_chunk
+        out_trees.extend(kept)
+        num_trees_cum += len(kept)
+
+    final = AncesTree(N=plan.N, seq=out_trees, sample_ages=sample_ages)
+    ancmut.write_anc_text(output + ".anc", final)
+    ancmut.write_mut_final(output + ".mut", mut_rows,
+                           extra_header=annot_header or "")
+    if cleanup:
+        shutil.rmtree(store.outdir, ignore_errors=True)
+    return num_non_mapping, num_flips
+
+
+def run_all(haps_path: str, sample_path: str, map_path: str, output: str,
+            Ne: float = 3e4, mu: float = 1.25e-8, seed: int = 1,
+            memory_gb=None, theta: float = 0.001,
+            dist_path: Optional[str] = None, use_transitions: bool = True,
+            sample_ages_path: Optional[str] = None,
+            coal: Optional[tuple] = None, cleanup: bool = True,
+            verbose: bool = True, rho_scale: float = 1.0,
+            postprocess: bool = False, annot_path: Optional[str] = None,
+            threads: int = 1, stream_windows: int = STREAM_WINDOWS,
+            cp_handoff_bytes: float = CP_HANDOFF_BYTES, device=None):
+    """Relate --mode All (pipeline/Relate.cpp:257-287) on ``device`` (None:
+    the CUDA card).
+
+    ``rho_scale`` applies the reference's ``--painting theta,rho`` override
+    (Paint.cpp:38-61) to both Paint and BuildTopology; ``annot_path`` joins
+    annotations into the final .mut (Finalize.cpp:98-183); ``coal`` is an
+    (epochs, rates) prior for the branch lengths; ``threads`` runs that many
+    chunks at a time (their host-bound stages overlap with other chunks'
+    device work; the output is byte-identical to the sequential order).
+    ``stream_windows`` and ``cp_handoff_bytes`` bound what is handed from
+    stage to stage in memory. Each chunk's ``infer_branch_lengths`` record in
+    ``utils.trace.STAGES`` carries the MCMC's rounds to convergence."""
+    if postprocess:
+        raise NotImplementedError(
+            "postprocess=True waits for the PostProcess item of the ROADMAP")
+    if sample_ages_path:
+        raise NotImplementedError(
+            "sample ages wait for the host topology builder of the ROADMAP")
+    device = resolve_device(device)
+    store = ArtifactStore(output + ".tmpdir")
+    plan = make_chunks(haps_path, sample_path, map_path, store.outdir,
+                       memory_gb, dist_path, use_transitions, device=device)
+    if verbose:
+        print(f"[relate] N={plan.N} L={plan.L} chunks={plan.num_chunks}")
+    epochs = rates = None
+    if coal is not None:
+        epochs, rates = coal
+
+    # run-level handoff for Finalize's combined-artifact reads, bounded:
+    # only kept for small chunk counts (each entry holds a whole chunk's
+    # trees in memory; with many chunks finalize re-reads)
+    fin_cache: Optional[dict] = {} if plan.num_chunks <= 2 else None
+    _, wplans_all = store.load_plan()
+
+    def _process_chunk(c: int):
+        # in-memory stage handoff: every artifact is still written (the
+        # resume model is unchanged) but the next stage skips re-reading
+        # what the previous stage just produced in this process. Long
+        # chunks skip the handoff so that peak memory stays bounded at about
+        # two windows (FindEquivalentBranches then streams).
+        W_c = wplans_all[c].num_windows
+        if W_c >= stream_windows:
+            cache = None
+        else:
+            cache = {} if fin_cache is None else fin_cache
+        # the paint -> build checkpoint handoff has its own bound: re-reading
+        # and re-uploading a 2 x (N, N) checkpoint per section is costly at
+        # large N, and the streaming threshold should not disable it
+        paint_cache = cache
+        if cache is None and 2 * 4 * plan.N * plan.N * W_c <= cp_handoff_bytes:
+            paint_cache = {}
+        with stage(f"chunk{c}.paint", verbose):
+            paint(store, c, theta, rho_scale=rho_scale, cache=paint_cache,
+                  device=device)
+        with stage(f"chunk{c}.build_topology", verbose):
+            build_topology(store, c, seed=seed, theta=theta,
+                           rho_scale=rho_scale, cache=paint_cache,
+                           device=device)
+        if paint_cache is not None and cache is None:
+            paint_cache.clear()
+        with stage(f"chunk{c}.find_equivalent_branches", verbose):
+            find_equivalent_branches(store, c, cache=cache,
+                                     stream_windows=stream_windows,
+                                     device=device)
+        with stage(f"chunk{c}.infer_branch_lengths", verbose):
+            infer_branch_lengths(store, c, Ne=Ne, mu=mu, seed=seed,
+                                 epochs=epochs, rates=rates, cache=cache,
+                                 device=device)
+        with stage(f"chunk{c}.combine_sections", verbose):
+            combine_sections(store, c, cache=cache)
+
+    chunks = list(range(plan.num_chunks))
+    if threads > 1 and len(chunks) > 1:
+        with ThreadPoolExecutor(max_workers=threads) as ex:
+            for _ in ex.map(_process_chunk, chunks):
+                pass
+    else:
+        for c in chunks:
+            _process_chunk(c)
+    with stage("finalize", verbose):
+        nnm, nfl = finalize(store, output, cleanup=cleanup,
+                            annot_path=annot_path, cache=fin_cache)
+    if verbose:
+        print(f"[relate] Number of not mapping SNPs: {nnm}")
+        print(f"[relate] Number of flipped SNPs    : {nfl}")
+        summary()
+    return output

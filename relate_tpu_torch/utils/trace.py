@@ -12,19 +12,31 @@ Usage::
     # -> [trace] paint: wall 3.21s cpu 2.87s rss 412MB dev_peak 96MB
 
 Structured records accumulate in ``STAGES`` so a caller can print a final
-per-stage summary table (and tests can assert on it).
+per-stage summary table (and tests can assert on it). Code that runs inside a
+stage can add to its record with ``note`` (the MCMC's rounds to convergence,
+for one).
 """
 from __future__ import annotations
 
 import contextlib
 import resource
 import sys
+import threading
 import time
 from typing import List, Optional
 
 import torch
 
 STAGES: List[dict] = []
+_OPEN = threading.local()      # per thread: the records of its open stages
+
+
+def note(key: str, item) -> None:
+    """Append ``item`` to the list ``key`` of the record of the innermost
+    stage open on this thread; nothing happens outside a stage."""
+    stack = getattr(_OPEN, "stack", None)
+    if stack:
+        stack[-1].setdefault(key, []).append(item)
 
 
 def _rss_mb() -> float:
@@ -52,15 +64,20 @@ def stage(name: str, verbose: bool = True):
     c0 = _cpu_s()
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.reset_peak_memory_stats()
-    yield
+    rec = {"stage": name}
+    if not hasattr(_OPEN, "stack"):
+        _OPEN.stack = []
+    _OPEN.stack.append(rec)
+    try:
+        yield
+    finally:
+        _OPEN.stack.pop()
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
-    rec = {
-        "stage": name,
-        "wall_s": round(time.time() - t0, 3),
-        "cpu_s": round(_cpu_s() - c0, 3),
-        "max_rss_mb": round(_rss_mb(), 1),
-    }
+    rec.update(
+        wall_s=round(time.time() - t0, 3),
+        cpu_s=round(_cpu_s() - c0, 3),
+        max_rss_mb=round(_rss_mb(), 1))
     dev = _device_mem_bytes()
     if dev is not None:
         rec["dev_peak_mb"] = round(dev / 1e6, 1)

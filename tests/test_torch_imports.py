@@ -13,7 +13,7 @@ import pytest
 import torch
 
 import relate_tpu_torch
-from relate_tpu_torch.core import painting
+from relate_tpu_torch.core import branch_association_device, mcmc, painting
 from relate_tpu_torch.ops import _build
 from relate_tpu_torch.ops import merge_scan as ms
 from relate_tpu_torch.ops import paint_kernels as pk
@@ -35,7 +35,10 @@ def _module_names():
 
 def test_every_module_imports_without_jax():
     names = _module_names()
-    assert len(names) >= 20
+    assert len(names) >= 23
+    for new in ("core.branch_association", "core.branch_association_device",
+                "core.mcmc"):
+        assert "relate_tpu_torch." + new in names
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"
@@ -44,6 +47,10 @@ def test_every_module_imports_without_jax():
         " or m == 'jaxlib' or m == 'relate_tpu'"
         " or m.startswith('relate_tpu.') or m == 'triton']\n"
         "assert not bad, bad\n"
+        "import torch\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "from relate_tpu_torch.ops import _build\n"
+        "assert not _build._LIBS\n"
         "print('imported', len(sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
@@ -131,6 +138,19 @@ def test_entry_points_do_not_fall_back_to_the_cpu(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["--mode", "Paint", "-o", str(tmp_path / "o")])
     with pytest.raises(RuntimeError, match="CUDA"):
+        relate.find_equivalent_branches(None, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        relate.infer_branch_lengths(None, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        relate.run_all("x.haps", "x.sample", "m.txt", str(tmp_path / "r"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--mode", "All", "-o", str(tmp_path / "r")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mcmc.run_mcmc([None], np.zeros(1), 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        branch_association_device.branch_association_many_device([None])
+    assert not (tmp_path / "r.tmpdir").exists()
+    with pytest.raises(RuntimeError, match="CUDA"):
         devmem.resolve_device("cuda")
     with pytest.raises(ValueError, match="memory_gb"):
         devmem.auto_memory_gb("cpu")
@@ -138,9 +158,25 @@ def test_entry_points_do_not_fall_back_to_the_cpu(tmp_path):
 
 
 def test_cli_names_the_modes_that_are_not_ported(tmp_path, capsys):
-    for mode in ("All", "FindEquivalentBranches", "InferBranchLengths",
-                 "CombineSections", "Finalize"):
+    assert cli.PORTED == ("All", "MakeChunks", "Paint", "BuildTopology",
+                          "FindEquivalentBranches", "InferBranchLengths",
+                          "CombineSections", "Finalize")
+    for mode in cli.NOT_PORTED:
         assert cli.main(["--mode", mode, "-o", str(tmp_path / "o"),
                          "--device", "cpu"]) == 2
         assert "not ported yet" in capsys.readouterr().err
+    assert set(cli.NOT_PORTED) == {"PostProcess", "OptimizeParameters",
+                                   "Clean"}
     assert relate_tpu_torch.__version__
+
+
+def test_no_environment_variable_picks_a_code_path():
+    """What the JAX package reads from the environment is an argument in
+    the port: no module of it reads ``os.environ`` beyond the compiler's
+    location."""
+    for f in sorted(PKG.rglob("*.py")):
+        text = f.read_text()
+        if f.name == "_build.py":
+            assert text.count("os.environ") == 1 and "CUDA_HOME" in text
+        else:
+            assert "os.environ" not in text and "getenv" not in text, f

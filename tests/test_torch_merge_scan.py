@@ -1,10 +1,13 @@
-"""The port's plain merge scan against the Pallas kernel of the JAX package
-(interpret mode): merge lists and clade rows must be equal exactly."""
+"""The port's plain merge scan against the Pallas kernels of the JAX package
+(interpret mode): merge lists and clade rows must be equal exactly, on the
+route that emits the clade rows and on the large route that rebuilds them
+from the merge lists."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
+from relate_tpu.ops.merge_scan import clades_from_merges as jax_clades
 from relate_tpu.ops.merge_scan import merge_scan_pallas
 from relate_tpu_torch.ops import merge_scan as tms
 
@@ -43,6 +46,51 @@ def test_merge_scan_plain_matches_pallas(N, kind, use_cf, threshold):
     assert np.array_equal(tms.clades_from_merges(pi, pj, N).numpy(),
                           pl.numpy())
     assert tms.launches["merge_scan"] == 0     # CPU tensors: plain version
+
+
+@pytest.mark.parametrize("threshold", [1e-6, 5.0])
+@pytest.mark.parametrize("use_cf", [False, True])
+@pytest.mark.parametrize("kind", ["real", "ties"])
+@pytest.mark.parametrize("N", [33, 40, 48])
+def test_large_plain_matches_large_pallas(N, kind, use_cf, threshold,
+                                          monkeypatch):
+    """The plain version of the large kernel (merge lists only) against
+    ``_kernel_large`` in interpret mode, and the rebuilt clades against the
+    JAX package's ``clades_from_merges``: all exactly equal."""
+    monkeypatch.setenv("RELATE_TPU_MERGE_LARGE", "1")
+    d, dcf = _matrices(kind, N, seed=100 + N)
+    seed = 777 + N
+    ci, cj, cl = merge_scan_pallas(jnp.asarray(d), jnp.asarray(dcf), use_cf,
+                                   threshold, 0.01, seed, interpret=True)
+    pi, pj = tms.merge_scan_large(torch.from_numpy(d), torch.from_numpy(dcf),
+                                  use_cf, threshold, 0.01, seed)
+    assert pi.dtype == torch.int32 and pi.shape == (N - 1,)
+    assert np.array_equal(np.asarray(ci), pi.numpy())
+    assert np.array_equal(np.asarray(cj), pj.numpy())
+    rebuilt = tms.clades_from_merges(pi, pj, N).numpy()
+    assert np.array_equal(np.asarray(jax_clades(ci, cj, N)), rebuilt)
+    assert np.array_equal(np.asarray(cl), rebuilt)
+    assert tms.launches["merge_scan_large"] == 0   # CPU tensors: plain
+
+
+@pytest.mark.parametrize("kind", ["real", "ties"])
+def test_large_route_equals_small_route(kind, monkeypatch):
+    """With the small limit lowered, ``merge_scan`` takes the large route
+    and gives the same lists and clades as the route with clade rows."""
+    N = 40
+    d, dcf = _matrices(kind, N, seed=9)
+    args = (torch.from_numpy(d), torch.from_numpy(dcf), True, 5.0, 0.01, 31)
+    small = tms.merge_scan(*args)
+    calls = []
+    real_large = tms.merge_scan_large
+    monkeypatch.setattr(tms, "merge_scan_large",
+                        lambda *a: calls.append(1) or real_large(*a))
+    monkeypatch.setattr(tms, "MAX_N_SMALL", 16)
+    large = tms.merge_scan(*args)
+    assert calls == [1]
+    assert len(large) == 3
+    for a, b in zip(small, large):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 def test_ties_depend_on_seed_and_cf_on_matrix():
@@ -93,6 +141,13 @@ def test_inputs_are_not_modified_and_checked():
 
 
 def test_sizes_above_1024_name_the_missing_kernels():
-    big = torch.zeros((1025, 1025))
-    with pytest.raises(NotImplementedError, match="B6.*B7"):
+    """Sizes above 2048 name B7, the one merge-scan kernel still to port;
+    sizes up to 2048 are accepted by the large route."""
+    assert (tms.MAX_N_SMALL, tms.MAX_N_LARGE) == (1024, 2048)
+    big = torch.zeros((2049, 2049))
+    with pytest.raises(NotImplementedError, match="B7"):
         tms.merge_scan(big, big, False, 1.0, 0.1, 0)
+    with pytest.raises(NotImplementedError, match="B7"):
+        tms.merge_scan_large(big, big, False, 1.0, 0.1, 0)
+    assert tms._check_inputs(big[:2048, :2048].contiguous(),
+                             big[:2048, :2048].contiguous()) == 2048

@@ -1,5 +1,7 @@
-"""The slice as a whole, MakeChunks -> Paint -> BuildTopology, in both
-packages on one synthetic panel, through their normal entry points.
+"""The pipeline as a whole, MakeChunks -> Paint -> BuildTopology ->
+FindEquivalentBranches -> InferBranchLengths -> CombineSections -> Finalize
+and ``run_all``, in both packages on one synthetic panel, through their
+normal entry points.
 
 The JAX package runs its Pallas kernels in interpret mode (the environment
 switches for the painter; ``_pallas_available`` is patched for the section
@@ -7,9 +9,14 @@ code, which otherwise takes the merge scan with ``jax.random`` ties on a
 CPU). The port runs on ``device="cpu"``. The merge seeds that the JAX
 package derives from its threefry keys are computed with JAX and injected
 into the port, so merge lists can be compared exactly. Checkpoint
-tolerances are those of ``test_torch_painting.py``.
+tolerances are those of ``test_torch_painting.py``. The later stages are
+deterministic given a store (the matcher, the splice, the text formats) and
+must write equal bytes; branch lengths come from chains that draw other
+random numbers in the two packages and are compared in distribution.
 """
 import filecmp
+import os
+import shutil
 from dataclasses import asdict
 
 import numpy as np
@@ -22,7 +29,9 @@ from relate_tpu.io import ancmut as jancmut
 from relate_tpu.io.chunking import ArtifactStore as JaxStore
 from relate_tpu.pipeline import relate as jrelate
 from relate_tpu.utils import synth as jsynth
+from relate_tpu_torch.core import topology_device as ttd
 from relate_tpu_torch.io import ancmut as tancmut
+from relate_tpu_torch.io import chunking as tchunking
 from relate_tpu_torch.io.chunking import ArtifactStore
 from relate_tpu_torch.pipeline import cli as tcli
 from relate_tpu_torch.pipeline import relate as trelate
@@ -213,3 +222,230 @@ def test_unported_options_raise(stores):
     with pytest.raises(NotImplementedError, match="host"):
         trelate.build_topology(stores["tstore"], 0, device="cpu",
                                ancestral_state=False)
+    prefix, tmp = stores["prefix"], stores["tmp"]
+    args = (prefix + ".haps", prefix + ".sample", str(tmp / "map.txt"),
+            str(tmp / "never"))
+    with pytest.raises(NotImplementedError, match="PostProcess"):
+        trelate.run_all(*args, device="cpu", postprocess=True)
+    with pytest.raises(NotImplementedError, match="host topology builder"):
+        trelate.run_all(*args, device="cpu", sample_ages_path="ages.txt")
+    assert not os.path.exists(str(tmp / "never.tmpdir"))
+
+
+def _copy_store(src, dst):
+    shutil.copytree(src.outdir, dst)
+    return str(dst)
+
+
+def _section_files(store, W):
+    return [store.path("chunk_0", f"trees_{w}.anc") for w in range(W)]
+
+
+def test_find_equivalent_branches_writes_the_same_bytes(stores, tmp_path):
+    """On the JAX package's BuildTopology output the port's
+    FindEquivalentBranches (device matcher) writes what the JAX package's
+    (host matcher) writes, and the streamed variant what the in-memory one
+    writes."""
+    W = stores["W"]
+    js = JaxStore(_copy_store(stores["jstore"], tmp_path / "jax"))
+    jrelate.find_equivalent_branches(js, 0)
+    ts = ArtifactStore(_copy_store(stores["jstore"], tmp_path / "port"))
+    before = [open(f, "rb").read() for f in _section_files(ts, W)]
+    cache = {}
+    trelate.find_equivalent_branches(ts, 0, cache=cache, device="cpu")
+    ss = ArtifactStore(_copy_store(stores["jstore"], tmp_path / "streamed"))
+    trelate.find_equivalent_branches(ss, 0, stream_windows=1, device="cpu")
+    for a, b, c in zip(*(_section_files(x, W) for x in (js, ts, ss))):
+        assert filecmp.cmp(a, b, shallow=False)
+        assert filecmp.cmp(b, c, shallow=False)
+    # the stage did something: spans now reach across trees and windows
+    assert before != [open(f, "rb").read() for f in _section_files(ts, W)]
+    assert sorted(k[2] for k in cache) == list(range(W))
+    bounds = stores["tstore"].load_chunk(0).windows.boundaries
+    first = tancmut.read_anc_bin(_section_files(ts, W)[1]).seq[0]
+    assert first.pos == bounds[1]
+    assert (first.tree.SNP_begin < bounds[1]).any()     # across the windows
+
+
+@pytest.fixture(scope="module")
+def inferred(stores, tmp_path_factory):
+    """The JAX package's store run through InferBranchLengths."""
+    tmp = tmp_path_factory.mktemp("inferred")
+    js = JaxStore(_copy_store(stores["jstore"], tmp / "store"))
+    jrelate.find_equivalent_branches(js, 0)
+    jrelate.infer_branch_lengths(js, 0, seed=1)
+    annot = tmp / "panel.annot"
+    annot.write_text("upstream_allele;downstream_allele;\n" + "".join(
+        f"{'ACGT'[i % 4]};{'TGCA'[i % 3]};\n" for i in range(L)))
+    return dict(store=js, annot=str(annot), tmp=tmp)
+
+
+@pytest.mark.parametrize("with_annot", [False, True],
+                         ids=["plain", "annot"])
+def test_combine_and_finalize_write_the_same_bytes(inferred, tmp_path,
+                                                   with_annot):
+    annot = inferred["annot"] if with_annot else None
+    js = JaxStore(_copy_store(inferred["store"], tmp_path / "jax"))
+    jrelate.combine_sections(js, 0)
+    jrelate.finalize(js, str(tmp_path / "jout"), annot_path=annot)
+    ts = ArtifactStore(_copy_store(inferred["store"], tmp_path / "port"))
+    cache = {}
+    trelate.combine_sections(ts, 0, cache=cache)
+    for f in ("combined.anc", "combined.mut", "DONE"):
+        assert filecmp.cmp(js.path("chunk_0", f), ts.path("chunk_0", f),
+                           shallow=False), f
+    nnm, nfl = trelate.finalize(ts, str(tmp_path / "tout"), annot_path=annot,
+                                cache=cache)
+    assert (nnm, nfl) == (sum(m.is_not_mapping for m in
+                              cache[("combined", 0)][1]), nfl)
+    for ext in (".anc", ".mut"):
+        assert filecmp.cmp(str(tmp_path / "jout") + ext,
+                           str(tmp_path / "tout") + ext, shallow=False), ext
+    # from the files alone (no cache) the same bytes again
+    trelate.finalize(ArtifactStore(_copy_store(ts, tmp_path / "again")),
+                     str(tmp_path / "tout2"), annot_path=annot, cleanup=True)
+    assert not os.path.exists(str(tmp_path / "again"))
+    for ext in (".anc", ".mut"):
+        assert filecmp.cmp(str(tmp_path / "tout") + ext,
+                           str(tmp_path / "tout2") + ext, shallow=False)
+    anc = tancmut.read_anc_text(str(tmp_path / "tout.anc"))
+    muts = tancmut.read_mut_final(str(tmp_path / "tout.mut"))
+    assert len(muts) == L and anc.N == N
+    assert any(m["age_end"] > 0 for m in muts)
+    with open(str(tmp_path / "tout.mut")) as f:
+        assert f.readline().endswith("downstream_allele;\n") == with_annot
+
+
+def _topology_lines(path):
+    """The text .anc with the branch lengths taken out."""
+    anc = tancmut.read_anc_text(path)
+    return [(mt.pos, mt.tree.parent.tolist(), mt.tree.num_events.tolist(),
+             mt.tree.SNP_begin.tolist(), mt.tree.SNP_end.tolist())
+            for mt in anc.seq], [mt.tree.branch_length for mt in anc.seq]
+
+
+def test_run_all_matches_the_jax_package(stores, tmp_path, monkeypatch):
+    """``run_all`` of both packages end to end: the same trees, the same
+    .mut columns up to the ages; branch lengths and ages in distribution.
+    They are posterior means over chains of a few hundred iterations that
+    draw other random numbers. Measured on these trees (N = 8), the JAX
+    package against itself under three seeds, and the port likewise: the
+    total length of a tree differs by 13-19 % for the median tree, by up to
+    180 % for the worst (heavy-tailed: not bounded here), and the mean over
+    the trees by up to 8 %. The bounds are about twice that: median below
+    30 %, mean total length and mean mutation age within 20 %."""
+    prefix, tmp = stores["prefix"], stores["tmp"]
+    args = (prefix + ".haps", prefix + ".sample", str(tmp / "map.txt"))
+    monkeypatch.setenv("RELATE_TPU_PALLAS_INTERPRET", "1")
+    monkeypatch.setenv("RELATE_TPU_PAINT_DMAX_BUCKET", "8")
+    monkeypatch.setenv("RELATE_TPU_PAINT_L_BUCKET", "64")
+    monkeypatch.setattr(jtd, "_pallas_available", lambda n: True)
+    cached = set(jtd._KERNEL_CACHE)
+    try:
+        jrelate.run_all(*args, str(tmp_path / "jax"), seed=1,
+                        memory_gb=MEMORY_GB, theta=THETA, verbose=False)
+    finally:
+        for k in set(jtd._KERNEL_CACHE) - cached:
+            del jtd._KERNEL_CACHE[k]
+    # the port cannot draw the JAX package's tie-break seeds itself
+    monkeypatch.setattr(ttd, "default_merge_seeds", jax_merge_seeds)
+    del ttrace.STAGES[:]
+    out = trelate.run_all(*args, str(tmp_path / "port"), seed=1,
+                          memory_gb=MEMORY_GB, theta=THETA, verbose=False,
+                          device="cpu")
+    assert out == str(tmp_path / "port")
+    assert not os.path.exists(out + ".tmpdir")          # cleanup=True
+    # the stage record carries one MCMC record per section
+    (rec,) = [r for r in ttrace.STAGES
+              if r["stage"] == "chunk0.infer_branch_lengths"]
+    assert len(rec["mcmc"]) == stores["W"] and all(
+        r["converged"] == r["chains"] for r in rec["mcmc"])
+    assert not any("mcmc" in r for r in ttrace.STAGES if r is not rec)
+    topo_j, bl_j = _topology_lines(str(tmp_path / "jax.anc"))
+    topo_t, bl_t = _topology_lines(out + ".anc")
+    assert topo_j == topo_t and len(topo_t) > stores["W"]
+    mj = tancmut.read_mut_final(str(tmp_path / "jax.mut"))
+    mt = tancmut.read_mut_final(out + ".mut")
+    ages = ("age_begin", "age_end")
+    assert [{k: v for k, v in m.items() if k not in ages} for m in mj] == \
+        [{k: v for k, v in m.items() if k not in ages} for m in mt]
+    tot_j = np.array([b.sum() for b in bl_j])
+    tot_t = np.array([b.sum() for b in bl_t])
+    assert (np.concatenate(bl_t) >= 0).all() and (tot_t > 0).all()
+    rel = np.abs(tot_t - tot_j) / tot_j
+    assert np.median(rel) < 0.3, rel
+    assert abs(tot_t.mean() - tot_j.mean()) / tot_j.mean() < 0.2
+    age_j = np.mean([m["age_end"] for m in mj])
+    age_t = np.mean([m["age_end"] for m in mt])
+    assert abs(age_t - age_j) / age_j < 0.2, (age_j, age_t)
+    assert all(m["age_begin"] <= m["age_end"] for m in mt)
+
+
+def test_run_all_threads_identical(tmp_path, monkeypatch):
+    """``threads=3`` must equal ``threads=1`` byte for byte. The chunk
+    overlap constants are shrunk so that a 600-SNP panel splits into several
+    chunks, which also runs ``finalize``'s chunk-overlap merge. It holds
+    only if every ``run_mcmc`` call makes its generators from its own seed
+    and shares none."""
+    monkeypatch.setattr(tchunking, "OVERLAP", 60)
+    monkeypatch.setattr(tchunking, "MERGE_DISCARD", 30)
+    monkeypatch.setattr(trelate, "MERGE_DISCARD", 30)
+    monkeypatch.setattr(tchunking, "MAX_WINDOWS_PER_CHUNK", 4)
+    G, bp = tsynth.synth_panel(8, 600, seed=11)
+    prefix = str(tmp_path / "p")
+    tsynth.write_haps_sample(G, bp, prefix)
+    tsynth.write_flat_map(prefix + ".map", int(bp[-1]))
+    mem = 1e-5
+    plan, _ = tchunking.plan_chunks_and_windows(G, mem)
+    assert plan.num_chunks > 2      # the pool engages, finalize re-reads
+    outs = []
+    for name, threads in (("seq", 1), ("par", 3)):
+        outs.append(str(tmp_path / name))
+        trelate.run_all(prefix + ".haps", prefix + ".sample",
+                        prefix + ".map", outs[-1], seed=1, verbose=False,
+                        threads=threads, memory_gb=mem, device="cpu",
+                        cleanup=False)
+    for ext in (".anc", ".mut"):
+        assert filecmp.cmp(outs[0] + ext, outs[1] + ext, shallow=False), ext
+    store = ArtifactStore(outs[1] + ".tmpdir")
+    assert all(os.path.exists(store.path(f"chunk_{c}", "DONE"))
+               for c in range(plan.num_chunks))
+    muts = tancmut.read_mut_final(outs[1] + ".mut")
+    assert [m["snp"] for m in muts] == list(range(600))
+    anc = tancmut.read_anc_text(outs[1] + ".anc")
+    pos = [mt.pos for mt in anc.seq]
+    assert pos == sorted(set(pos)) and max(m["tree"] for m in muts) == \
+        len(pos) - 1
+
+
+def test_cli_all_and_stage_modes(stores, tmp_path, monkeypatch):
+    """``--mode All`` and the four later stage modes on ``--device cpu``;
+    the stage-by-stage flow ends in the files that ``--mode All`` writes
+    (same seeds, so the same chains)."""
+    prefix, tmp = stores["prefix"], stores["tmp"]
+    inputs = ["--haps", prefix + ".haps", "--sample", prefix + ".sample",
+              "--map", str(tmp / "map.txt"), "--memory", str(MEMORY_GB)]
+    coal = tmp_path / "p.coal"
+    coal.write_text("group\n0 1000 10000\n0 0 4e-5 2e-5 3e-5\n")
+    epochs, rates = tcli.read_coal_file(str(coal))
+    assert epochs.tolist() == [0, 1000, 10000] and rates.tolist() == \
+        [4e-5, 2e-5, 3e-5]
+    common = ["--device", "cpu", "--seed", "2", "--coal", str(coal)]
+    out_all = str(tmp_path / "all")
+    assert tcli.main(["--mode", "All", "-o", out_all, "--threads", "2"]
+                     + inputs + common) == 0
+    store = str(tmp_path / "staged")
+    assert tcli.main(["--mode", "MakeChunks", "-o", store] + inputs
+                     + common) == 0
+    for mode in ("Paint", "BuildTopology", "FindEquivalentBranches",
+                 "InferBranchLengths", "CombineSections"):
+        assert tcli.main(["--mode", mode, "-o", store] + common) == 0
+    out_st = str(tmp_path / "final")
+    assert tcli.main(["--mode", "Finalize", "-o", out_st, "--store", store]
+                     + common) == 0
+    assert [r["stage"] for r in ttrace.summary(verbose=False)][-4:] == \
+        ["FindEquivalentBranches", "InferBranchLengths", "CombineSections",
+         "Finalize"]
+    for ext in (".anc", ".mut"):
+        assert filecmp.cmp(out_all + ext, out_st + ext, shallow=False), ext
+    assert not os.path.exists(out_all + ".tmpdir") and os.path.isdir(store)
