@@ -4,24 +4,26 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``relate_tpu_torch/csrc``, holds every kernel
-against its plain PyTorch version on the card, drives the port's two main
+against its plain PyTorch version on the card, drives the port's three main
 paths through ``relate_tpu_torch.pipeline.relate`` and checks what they
 wrote:
 
 - ``run_all`` (``Relate --mode All``: MakeChunks -> Paint -> BuildTopology
   -> FindEquivalentBranches -> InferBranchLengths -> CombineSections ->
-  Finalize) at N = 2048 haplotypes and L = 8192 SNPs of a seeded synthetic
-  panel: the width at which the merge scan takes its large kernel;
+  Finalize) at N = 4096 haplotypes and L = 4096 SNPs of a seeded synthetic
+  panel: above 2048 every tree is built by the incremental merge scan;
+- ``run_all`` at N = 2048 and L = 8192: the width at which the merge scan
+  takes its large dense kernel;
 - MakeChunks -> Paint -> BuildTopology at N = 1024 and L = 8192, the width
   of the merge-scan kernel that also emits the clade rows.
 
 Phases, each printing one JSON line: ``device``, ``build``, ``inputs``,
-``kernels``, ``main_path`` (N = 1024), ``run_all``
-(N = 2048), ``cpu_vs_card``; then the ``{"kernels": [...]}`` line, the card's name and
-power limit as ``nvidia-smi`` gives them, and the result line. The launch
-counts are set to 0 just before each path and read just after it. Any phase
-that fails ends the run with a non-zero exit code. Needs a CUDA device and
-no network. ``--phases a,b`` runs a subset (the build always runs);
+``kernels``, ``main_path`` (N = 1024), ``run_all`` (N = 2048),
+``run_all_n4096``, ``cpu_vs_card``; then the ``{"kernels": [...]}`` line,
+the card's name and power limit as ``nvidia-smi`` gives them, and the result
+line. The launch counts are set to 0 just before each path and read just
+after it. Any phase that fails ends the run with a non-zero exit code. Needs
+a CUDA device and no network. ``--phases a,b`` runs a subset (the build always runs);
 ``--phases profile`` adds a ``torch.profiler`` breakdown of Paint and one
 section of BuildTopology at N = 1024 and of FindEquivalentBranches and
 InferBranchLengths at N = 2048, which the default run leaves out.
@@ -36,7 +38,8 @@ logscale + log(sum(row)) at atol 2e-3, on the valid rows; rows at and
 past D[b] of the backward outputs must be exactly zero. ``max_abs_err`` is
 the largest difference of the rows normalised to sum 1. ``rows_rescaled_
 elsewhere`` counts the rows that differ before the scale is taken out.
-The merge scans' outputs (cis, cjs, clades) must be equal exactly.
+The merge scans' outputs (cis, cjs, clades) must be equal exactly, and the
+incremental scan's counts of repairs and fallback steps as well.
 """
 from __future__ import annotations
 
@@ -54,7 +57,12 @@ import torch
 N_HAP = 1024                   # the path of the merge scan with clade rows
 N_LARGE = 2048                 # the run_all path: the large merge scan
 N_ODD = 1576                   # no multiple of 256: the loop tails
+N_INC = 4096                   # the run_all path of the incremental merge scan
+N_INC_SMALL = 512              # the incremental scan's four small cases
+N_INC_ODD = 5008               # no multiple of 128 or of the block sizes
+N_INC_MAX = 16384              # the widest panel the port takes
 L_SNPS = 8192
+L_SNPS_INC = 4096              # of the N = 4096 panel
 SEED = 20240611
 THETA = 0.001
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
@@ -155,9 +163,9 @@ def phase_build():
          ptxas=ptxas)
 
 
-def make_panel(N):
+def make_panel(N, L):
     from relate_tpu_torch.utils import synth
-    G, bp = synth.synth_coalescent_panel(N, L_SNPS, seed=SEED)[:2]
+    G, bp = synth.synth_coalescent_panel(N, L, seed=SEED)[:2]
     return np.ascontiguousarray(G, dtype=np.uint8), bp
 
 
@@ -448,22 +456,216 @@ def merge_scan_large_row(mat_large, mat_small):
         io_bytes_ms=io_bytes / HBM_BYTES_PER_S * 1e3)
 
 
+def random_cases(N):
+    """Four inputs of the incremental merge scan that no panel gives:
+    continuous values with the clade prior off and on (wide bands, so many
+    pairs are mutual and the prior decides), tie-heavy small integers with
+    the prior on, and a negative threshold (no pair is ever mutual: the
+    fallback runs every step). (label, d, dcf, use_cf, threshold,
+    threshold_cf, seed)."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED + N)
+
+    def rand(scale):
+        m = torch.rand((N, N), generator=gen) * scale
+        return m.fill_diagonal_(0.0).to(DEV)
+
+    def ints(high):
+        m = torch.randint(0, high, (N, N), generator=gen).to(torch.float32)
+        return m.fill_diagonal_(0.0).to(DEV)
+
+    d, dcf = rand(10.0), rand(3.0)
+    return [("continuous", d, dcf, False, 5.0, 1.0, 31),
+            ("continuous+clade_prior", d, dcf, True, 5.0, 1.0, 31),
+            ("ties+clade_prior", ints(4), ints(3), True, 1e-6, 0.01, 4242),
+            ("fallback_every_step", d, dcf, False, -1.0, 1.0, 7)]
+
+
+def inc_bound_bytes(N, counts, use_cf):
+    """Bytes the incremental scan must move for this run's counts: the four
+    matrices read once by the set-up, per step eight rows read, four rows
+    written and four columns written with stride N (a strided float costs
+    its 32-byte sector), a repair's rows (row w of d and of its transpose,
+    and of the clade prior's two where the prior is on), the live entries of
+    d and of its transpose at each fallback step (``fallback_entries``:
+    the square of the number of live rows, summed over those steps), and
+    the two merge lists written."""
+    return (4 * N * N * 4 + (N - 1) * (8 * N * 4 + 4 * N * 4 + 4 * N * 32)
+            + counts["repairs"] * (4 if use_cf else 2) * N * 4
+            + counts["fallback_entries"] * 2 * 4 + 2 * (N - 1) * 4)
+
+
+def merge_scan_inc_row(mat_inc, mat_large):
+    """B7, the incremental merge scan, against its plain version on the card
+    (merge lists and the counts of repairs and fallback steps equal exactly):
+    four cases at N = 512, the posterior's distance matrix of the N = 4096
+    panel with the old tree's clade prior, and N = 5008 (no multiple of 128
+    or of the block sizes) with a band so narrow that a third of the steps
+    fall back. Against B6 at N = 2048 on a continuous matrix with the prior
+    off, where every minimum is unique and the two scans' semantics
+    coincide. A scan at N = 4096 that falls back at every step is timed and
+    checked to be a tree; its plain version would take a minute and a half.
+    Both N = 4096 scans are also run under ``torch.profiler`` for the device
+    time of each of their kernels. The widest scan the port takes,
+    N = 16384, is timed on a uniform random matrix with the prior on and
+    checked to be a tree; its plain version would take a quarter of an
+    hour."""
+    from relate_tpu_torch.ops import merge_scan as ms
+    from relate_tpu_torch.ops import merge_scan_inc as mi
+    N = mat_inc.shape[0]
+    if not ms.MAX_N_LARGE < N <= ms.MAX_N_INC:
+        fail(f"merge_scan_inc: N = {N} is not on the incremental route")
+    detail = []
+
+    def against_plain(n, label, d_, dcf_, ucf, thr, thr_cf, seed):
+        args = (d_, dcf_, ucf, thr, thr_cf, seed)
+        ck, cp = {}, {}
+        k = mi.merge_scan_inc_lists(*args, ck)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        p = mi.merge_scan_inc_plain(*args, cp)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        rec = {"N": n, "case": label, "use_cf": ucf,
+               "equal": torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]),
+               "repairs": ck["repairs"],
+               "fallback_steps": ck["fallback_steps"],
+               "fallback_entries": ck["fallback_entries"],
+               "plain_ms": plain_ms}
+        detail.append(rec)
+        if not rec["equal"]:
+            steps = [first_difference(x, y) for x, y in zip(k, p)]
+            fail(f"merge_scan_inc[N={n}, {label}]: merge lists differ from "
+                 "the plain version (first at step "
+                 f"{min(t for t in steps if t >= 0)})")
+        if ck != cp:
+            fail(f"merge_scan_inc[N={n}, {label}]: the kernel counted {ck}, "
+                 f"the plain version {cp}")
+        clades = ms.clades_from_merges(k[0], k[1], n)
+        if float(clades[-1].sum()) != n or bool((clades.sum(dim=1) < 2).any()):
+            fail(f"merge_scan_inc[N={n}, {label}]: the merge lists are no "
+                 "tree on all leaves")
+        rec.update(timed(n, args, ck))
+        return rec
+
+    def timed(n, args, counts):
+        ms_k = time_ms(lambda: mi.merge_scan_inc_lists(*args),
+                       3 if n <= N_INC_ODD else 1)
+        out = {"ms": ms_k, "us_per_step": ms_k * 1e3 / (n - 1),
+               "repairs_per_step": counts["repairs"] / (n - 1),
+               "bound_ms": inc_bound_bytes(n, counts, args[2])
+               / HBM_BYTES_PER_S * 1e3}
+        if n == N:      # the main path's width: device time of each kernel
+            out["device_kernels"] = profiled(
+                lambda: mi.merge_scan_inc_lists(*args))["top"]
+        return out
+
+    for case in random_cases(N_INC_SMALL):
+        against_plain(N_INC_SMALL, *case)
+    if detail[-1]["fallback_steps"] != N_INC_SMALL - 1:
+        fail("merge_scan_inc: the negative threshold did not fall back at "
+             "every step")
+    # the main path's input: the posterior's matrix with the clade prior of
+    # the tree built from it
+    thr, thr_cf, cases = merge_cases(mat_inc, mi.merge_scan_incremental)
+    label, d_, dcf_, ucf, seed = cases[1]
+    main = against_plain(N, label, d_, dcf_, ucf, thr, thr_cf, seed)
+    lists = mi.merge_scan_inc_lists(d_, dcf_, ucf, thr, thr_cf, seed)
+    ms_c = time_ms(lambda: ms.clades_from_merges(lists[0], lists[1], N), 3)
+    zeros = torch.zeros_like(mat_inc)
+    fb_args = (mat_inc, zeros, False, -1.0, thr_cf, 7)
+    fb_counts = {}
+    fb_lists = mi.merge_scan_inc_lists(*fb_args, fb_counts)
+    fb_clades = ms.clades_from_merges(fb_lists[0], fb_lists[1], N)
+    if fb_counts["fallback_steps"] != N - 1 \
+            or fb_counts["fallback_entries"] != sum(
+                k * k for k in range(2, N + 1)) \
+            or float(fb_clades[-1].sum()) != N:
+        fail(f"merge_scan_inc[N={N}, fallback_every_step]: {fb_counts}, or "
+             "the merge lists are no tree on all leaves")
+    fb = dict(fb_counts, **timed(N, fb_args, fb_counts))
+    del cases, d_, dcf_, zeros, fb_clades
+    torch.cuda.empty_cache()
+    label, d_, dcf_, ucf, _, thr_cf_odd, seed = random_cases(N_INC_ODD)[1]
+    odd = against_plain(N_INC_ODD, label + ", narrow band", d_, dcf_, ucf,
+                        0.5, thr_cf_odd, seed)
+    del d_, dcf_
+    torch.cuda.empty_cache()
+    # the widest scan: made on the card, 1 GB a matrix
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    d_ = (torch.rand((N_INC_MAX, N_INC_MAX), generator=gen, device=DEV)
+          * 10).fill_diagonal_(0.0)
+    dcf_ = (torch.rand((N_INC_MAX, N_INC_MAX), generator=gen, device=DEV)
+            * 3).fill_diagonal_(0.0)
+    max_args = (d_, dcf_, True, 5.0, 0.01, 9)
+    max_counts = {}
+    max_lists = mi.merge_scan_inc_lists(*max_args, max_counts)
+    max_clades = ms.clades_from_merges(max_lists[0], max_lists[1], N_INC_MAX)
+    if float(max_clades[-1].sum()) != N_INC_MAX \
+            or bool((max_clades.sum(dim=1) < 2).any()):
+        fail(f"merge_scan_inc[N={N_INC_MAX}]: the merge lists are no tree on "
+             "all leaves")
+    del max_clades
+    widest = dict(N=N_INC_MAX, case="uniform random+clade_prior",
+                  **max_counts, **timed(N_INC_MAX, max_args, max_counts))
+    del d_, dcf_, max_args
+    torch.cuda.empty_cache()
+    # against the large dense scan where the semantics coincide
+    n = mat_large.shape[0]
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    d_ = (torch.rand((n, n), generator=gen) * 10).fill_diagonal_(0.0).to(DEV)
+    zeros = torch.zeros_like(d_)
+    a = mi.merge_scan_inc_lists(d_, zeros, False, 5.0, 0.01, 3)
+    b = ms.merge_scan_large(d_, zeros, False, 5.0, 0.01, 3)
+    torch.cuda.synchronize()
+    same = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    detail.append({"N": n, "case": "continuous vs merge_scan_large",
+                   "use_cf": False, "equal": same})
+    if not same:
+        fail(f"merge_scan_inc[N={n}]: lists differ from the large dense "
+             f"scan's (first at step {first_difference(a[0], b[0])})")
+    nbytes = inc_bound_bytes(N, main, main["use_cf"])
+    # operations: the blend (12 a lane a step) and a rescan's tests, sums
+    # and hash (about 20 a lane a repair)
+    ops = (N - 1) * 12 * N + main["repairs"] * 20 * N
+    return make_row(
+        "merge_scan_inc", "relate_tpu_torch/csrc/merge_scan_inc.cu",
+        "relate_tpu/ops/merge_scan_inc.py:726", 0.0, 0, main["ms"],
+        main["plain_ms"], nbytes, ops, shape=[N, N], cases=detail,
+        us_per_step=main["us_per_step"],
+        repairs_per_step=main["repairs_per_step"],
+        fallback_steps=main["fallback_steps"],
+        clades_from_merges_ms=ms_c, device_kernels=main["device_kernels"],
+        fallback_every_step=fb, at_n16384=widest,
+        at_odd_n={k: odd[k] for k in (
+            "N", "case", "ms", "us_per_step", "repairs_per_step",
+            "fallback_steps", "fallback_entries", "plain_ms", "bound_ms")})
+
+
+AT_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+           "rows_rescaled_elsewhere")
+
+
 def phase_kernels(panels):
     """Each kernel against its plain version on the card, at the shapes of
-    the two main paths. ``panels``: {N: (G, bp, memory_gb)}. The rows of
+    the three main paths. ``panels``: {N: (G, bp, memory_gb)}. The rows of
     the sweeps and of the merge scan with clade rows hold the numbers at
-    N = 1024 (the sweeps' numbers at N = 2048 stand beside them under
-    ``at_n2048``); the row of the large merge scan holds those at N = 2048."""
+    N = 1024 (the sweeps' numbers at N = 2048 and N = 4096 stand beside
+    them under ``at_n2048`` and ``at_n4096``); the row of the large merge
+    scan holds those at N = 2048, the incremental scan's those at
+    N = 4096."""
     res, mat_small = sweep_rows(*panels[N_HAP], w=1)
     res.append(merge_scan_row(mat_small))
     torch.cuda.empty_cache()
     wide, mat_large = sweep_rows(*panels[N_LARGE], w=1)
     for row, at in zip(res, wide):
-        row["at_n2048"] = {k: at[k] for k in (
-            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "rows_rescaled_elsewhere")}
+        row["at_n2048"] = {k: at[k] for k in AT_KEYS}
+    torch.cuda.empty_cache()
+    wide, mat_inc = sweep_rows(*panels[N_INC], w=1)
+    for row, at in zip(res, wide):
+        row["at_n4096"] = {k: at[k] for k in AT_KEYS}
     torch.cuda.empty_cache()
     res.append(merge_scan_large_row(mat_large, mat_small))
+    res.append(merge_scan_inc_row(mat_inc, mat_large))
     emit("kernels", kernels=res,
          tolerance="sweeps: rows/sum rtol 1e-5, logscale+log(sum) atol 2e-3; "
                    "merge scans: exact")
@@ -486,7 +688,8 @@ def read_counts():
             "paint_fwd_capture": pk.launches["fwd_capture"],
             "paint_bwd_capture": pk.launches["bwd_capture"],
             "merge_scan": ms.launches["merge_scan"],
-            "merge_scan_large": ms.launches["merge_scan_large"]}
+            "merge_scan_large": ms.launches["merge_scan_large"],
+            "merge_scan_inc": ms.launches["merge_scan_inc"]}
 
 
 def check_tree(what, par, N):
@@ -609,8 +812,8 @@ def phase_main_path(G, bp, memory_gb, kernels):
             fail("main_path: paint_1.npz alpha has the wrong shape or sign")
 
     add_launches(kernels, "build_topology_n1024", counts)
-    missing = [n for n, c in counts.items()
-               if c <= 0 and n != "merge_scan_large"]
+    others = ("merge_scan_large", "merge_scan_inc")
+    missing = [n for n, c in counts.items() if c <= 0 and n not in others]
     emit("main_path", N=int(ch.N), L=int(ch.L), windows=W,
          boundaries=[int(b) for b in bounds], memory_gb=memory_gb,
          sections_built=built, sections=sections,
@@ -621,12 +824,16 @@ def phase_main_path(G, bp, memory_gb, kernels):
          peak_device_memory_gb=round(peak / 1e9, 3))
     if missing:
         fail(f"main_path: kernels never launched: {missing}")
+    if any(counts[n] for n in others):
+        fail("main_path: the N = 1024 path launched another merge scan")
 
 
-def phase_run_all(G, bp, memory_gb, kernels):
-    """``run_all`` (Relate --mode All) at N = 2048 through the port's entry
-    point, with every launch count set to 0 just before and read just after,
-    and the checks on the ``.anc``/``.mut`` it wrote."""
+def phase_run_all(G, bp, memory_gb, kernels, phase, scan):
+    """``run_all`` (Relate --mode All) through the port's entry point, with
+    every launch count set to 0 just before and read just after, and the
+    checks on the ``.anc``/``.mut`` it wrote. ``scan`` names the merge-scan
+    kernel that this width must launch, once for every tree it builds, and
+    the other two must not be launched at all."""
     from relate_tpu_torch.io import ancmut
     from relate_tpu_torch.io.chunking import ArtifactStore
     from relate_tpu_torch.pipeline import relate
@@ -658,7 +865,7 @@ def phase_run_all(G, bp, memory_gb, kernels):
         plan, wplans = store.load_plan()
         W = wplans[0].num_windows
         if plan.N != N or plan.num_chunks != 1 or W < 2:
-            fail(f"run_all: N = {plan.N}, chunks = {plan.num_chunks}, "
+            fail(f"{phase}: N = {plan.N}, chunks = {plan.num_chunks}, "
                  f"W = {W}; wanted N = {N}, one chunk, W >= 2")
         trees_per_section = [len(ancmut.read_anc_bin(
             store.path("chunk_0", f"trees_{w}.anc")).seq) for w in range(W)]
@@ -666,43 +873,48 @@ def phase_run_all(G, bp, memory_gb, kernels):
         muts = ancmut.read_mut_final(out + ".mut")
 
     if anc.N != N or len(anc.seq) != sum(trees_per_section):
-        fail(f"run_all: .anc has N = {anc.N} and {len(anc.seq)} trees; the "
+        fail(f"{phase}: .anc has N = {anc.N} and {len(anc.seq)} trees; the "
              f"sections have {trees_per_section}")
     if len(muts) != L or [m["snp"] for m in muts] != list(range(L)):
-        fail(f"run_all: {len(muts)} .mut rows for {L} SNPs")
+        fail(f"{phase}: {len(muts)} .mut rows for {L} SNPs")
     prev = -1
     totals = []
     for mt in anc.seq:
-        check_tree(f"run_all: tree at {mt.pos}", mt.tree.parent, N)
+        check_tree(f"{phase}: tree at {mt.pos}", mt.tree.parent, N)
         bl = mt.tree.branch_length
         if not np.isfinite(bl).all() or (bl < 0).any():
-            fail(f"run_all: tree at {mt.pos} has a branch length that is "
+            fail(f"{phase}: tree at {mt.pos} has a branch length that is "
                  "not finite or negative")
         if np.unique(bl[:-1]).size < 2:
-            fail(f"run_all: tree at {mt.pos} has all branch lengths equal")
+            fail(f"{phase}: tree at {mt.pos} has all branch lengths equal")
         if mt.pos <= prev:
-            fail("run_all: tree positions are not ascending")
+            fail(f"{phase}: tree positions are not ascending")
         if (mt.tree.SNP_begin > mt.tree.SNP_end).any():
-            fail(f"run_all: tree at {mt.pos} has SNP_begin > SNP_end")
+            fail(f"{phase}: tree at {mt.pos} has SNP_begin > SNP_end")
         prev = mt.pos
         totals.append(float(bl.sum()))
     for m in muts:
         if not 0 <= m["tree"] < len(anc.seq):
-            fail(f"run_all: SNP {m['snp']} names tree {m['tree']}")
+            fail(f"{phase}: SNP {m['snp']} names tree {m['tree']}")
         if not (np.isfinite(m["age_begin"]) and np.isfinite(m["age_end"])
                 and m["age_begin"] <= m["age_end"]):
-            fail(f"run_all: SNP {m['snp']} has age_begin > age_end")
+            fail(f"{phase}: SNP {m['snp']} has age_begin > age_end")
     mapped = [m for m in muts if len(m["branch"]) == 1]
     if not any(m["age_end"] > 0 for m in mapped):
-        fail("run_all: no mutation has an age")
+        fail(f"{phase}: no mutation has an age")
     n_not_mapping = sum(m["is_not_mapping"] for m in muts)
 
     mcmc_stats = [m for r in STAGES for m in r.get("mcmc", [])]
-    add_launches(kernels, "run_all_n2048", counts)
+    feb = [m for r in STAGES for m in r.get("feb", [])]
+    # every tree build of BuildTopology, the reverted candidates included
+    tree_builds = sum(m["tree_builds"] for r in STAGES
+                      for m in r.get("topology", []))
+    add_launches(kernels, f"run_all_n{N}", counts)
     needed = ("paint_fwd", "paint_bwd", "paint_fwd_capture",
-              "paint_bwd_capture", "merge_scan_large")
+              "paint_bwd_capture", scan)
     missing = [n for n in needed if counts[n] <= 0]
-    emit("run_all", N=N, L=L, windows=W,
+    scans = ("merge_scan", "merge_scan_large", "merge_scan_inc")
+    emit(phase, N=N, L=L, windows=W,
          boundaries=[int(b) for b in wplans[0].boundaries],
          memory_gb=memory_gb, wall_s=round(wall, 3),
          stages=[{k: r.get(k) for k in ("stage", "wall_s", "cpu_s",
@@ -710,8 +922,10 @@ def phase_run_all(G, bp, memory_gb, kernels):
                  for r in STAGES],
          write_inputs_s=round(t_inputs, 2), launches=counts,
          trees=len(anc.seq), trees_per_section=trees_per_section,
+         tree_builds=tree_builds,
          mcmc=mcmc_stats,
          mcmc_rounds_max=max(r["rounds"] for r in mcmc_stats),
+         find_equivalent_branches=feb,
          total_branch_length_generations=dict(
              min=min(totals), median=float(np.median(totals)),
              max=max(totals)),
@@ -719,9 +933,13 @@ def phase_run_all(G, bp, memory_gb, kernels):
          flipped=sum(m["flipped"] for m in muts),
          peak_device_memory_gb=round(peak / 1e9, 3))
     if missing:
-        fail(f"run_all: kernels never launched: {missing}")
-    if counts["merge_scan"]:
-        fail("run_all: the N = 2048 path launched the N <= 1024 merge scan")
+        fail(f"{phase}: kernels never launched: {missing}")
+    if any(counts[n] for n in scans if n != scan):
+        fail(f"{phase}: the N = {N} path launched another merge scan than "
+             f"{scan}")
+    if counts[scan] != tree_builds or tree_builds < len(anc.seq):
+        fail(f"{phase}: {counts[scan]} merge scans for {tree_builds} tree "
+             f"builds and {len(anc.seq)} trees")
 
 
 def profiled(fn):
@@ -766,7 +984,8 @@ def phase_profile(panels):
     rows = {}
     with tempfile.TemporaryDirectory(prefix="relate_smoke_") as tmp:
         stores = {}
-        for N, (G, bp, memory_gb) in panels.items():
+        for N in (N_HAP, N_LARGE):
+            G, bp, memory_gb = panels[N]
             prefix = os.path.join(tmp, f"panel{N}")
             synth.write_haps_sample(G, bp, prefix)
             synth.write_flat_map(prefix + ".map", int(bp[-1]))
@@ -912,7 +1131,8 @@ def phase_cpu_vs_card():
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="kernels,main_path,run_all,cpu_vs_card")
+                    default="kernels,main_path,run_all,run_all_n4096,"
+                            "cpu_vs_card")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -929,13 +1149,14 @@ def main():
     # checkpoint) and FindEquivalentBranches crosses a window boundary
     memory_auto = auto_memory_gb()
     panels = {}
-    for N in (N_HAP, N_LARGE):
-        G, bp = make_panel(N)
+    for N in (N_HAP, N_LARGE, N_INC):
+        G, bp = make_panel(N, L_SNPS_INC if N == N_INC else L_SNPS)
         memory_gb = memory_auto
         if len(plan_chunks_and_windows(G, memory_gb)[1][0].boundaries) - 1 < 3:
             memory_gb = SMALLER_MEMORY_GB
         panels[N] = (G, bp, memory_gb)
-    emit("inputs", L=L_SNPS, seed=SEED,
+    emit("inputs", L={N: int(p[0].shape[0]) for N, p in panels.items()},
+         seed=SEED,
          memory_gb_from_card=round(memory_auto, 3),
          memory_gb={N: p[2] for N, p in panels.items()})
     kernels = []
@@ -945,7 +1166,13 @@ def main():
     if "main_path" in phases:
         phase_main_path(*panels[N_HAP], kernels)
     if "run_all" in phases:
-        phase_run_all(*panels[N_LARGE], kernels)
+        phase_run_all(*panels[N_LARGE], kernels, "run_all",
+                      "merge_scan_large")
+        torch.cuda.empty_cache()
+    if "run_all_n4096" in phases:
+        phase_run_all(*panels[N_INC], kernels, "run_all_n4096",
+                      "merge_scan_inc")
+        torch.cuda.empty_cache()
     if "cpu_vs_card" in phases:
         phase_cpu_vs_card()
     if "profile" in phases:

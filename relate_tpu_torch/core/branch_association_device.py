@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..utils.devmem import resolve_device
+from ..utils.trace import note
 from .branch_association import EXACT, THRESHOLD_BRANCHEQ, _count_compat_table
 from .trees import Tree
 
@@ -243,6 +244,8 @@ def branch_association_many_device(trees: List[Tree],
     if pair_chunk is None:
         pair_chunk = pair_chunk_for(N, device)
     compat_tab = torch.from_numpy(_count_compat_table(N)).to(device)
+    note("feb", dict(pairs=T - 1, pair_chunk=pair_chunk,
+                     batches=-(-(T - 1) // pair_chunk)))
 
     def up(field):
         return torch.from_numpy(

@@ -40,6 +40,7 @@ from .topology import MutationRecord, SectionResult
 from .treebuilder import thresholds, tree_from_merges
 from .trees import AncesTree, MarginalTree
 from ..ops.merge_scan import merge_scan
+from ..utils.trace import note
 
 KB = 64        # SNPs mapped against the current tree per block
 _BIG = 1e9
@@ -233,7 +234,11 @@ def build_topology_section_device(painter: Painter, cp: Checkpoint,
         return _assemble_ops(topology, logscale, row_all[i], is_exact, wl,
                              wr, kcol)
 
+    tree_builds = 0
+
     def new_tree(mat, dcf, ucf, seed_):
+        nonlocal tree_builds
+        tree_builds += 1
         cis, cjs, clades = merge_scan(mat, dcf, ucf, threshold, threshold_cf,
                                       int(seed_))
         merges = torch.stack([cis, cjs], dim=1)
@@ -346,6 +351,8 @@ def build_topology_section_device(painter: Painter, cp: Checkpoint,
         tr.SNP_end[:] = (pos_list[ti + 1] if ti + 1 < num_tree else end)
         seq.append(MarginalTree(pos=int(pos_list[ti]), tree=tr))
     anc = AncesTree(N=N, seq=seq)
+    # a reverted candidate was built and is no tree of the section
+    note("topology", dict(trees=num_tree, tree_builds=tree_builds))
 
     muts = []
     for i in range(S):

@@ -160,9 +160,12 @@ int launch(const void* D, const void* want, const void* beta_end,
            void* lsout, int Dmax, int B, int N, float theta, float ntheta,
            float theta_ratio, cudaStream_t st) {
     const size_t shmem = (size_t)2 * N * sizeof(float) + (size_t)((N + 3) / 4) * 4;
-    cudaFuncSetAttribute(paint_bwd_kernel<MODE>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)shmem);
+    // above the 48 KB default (N > 5461) the block's dynamic shared memory
+    // must be asked for; a refusal (N rows past 227 KB) is returned
+    const cudaError_t e = cudaFuncSetAttribute(
+        paint_bwd_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)shmem);
+    if (e != cudaSuccess) return (int)e;
     paint_bwd_kernel<MODE><<<B, THREADS, shmem, st>>>(
         (const int*)D, (const int*)want, (const float*)beta_end,
         (const float*)kmask, (const int8_t*)mism, (const float*)pfac,

@@ -138,19 +138,24 @@ extern "C" int paint_fwd_launch(const void* D, const void* want,
                                 void* stream) {
     const size_t shmem = (size_t)2 * N * sizeof(float);
     cudaStream_t st = (cudaStream_t)stream;
+    // above the 48 KB default (N > 6144) the block's dynamic shared memory
+    // must be asked for; a refusal (N rows past 227 KB) is returned
+    cudaError_t e;
     if (capture) {
-        cudaFuncSetAttribute(paint_fwd_kernel<true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)shmem);
+        e = cudaFuncSetAttribute(paint_fwd_kernel<true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)shmem);
+        if (e != cudaSuccess) return (int)e;
         paint_fwd_kernel<true><<<B, THREADS, shmem, st>>>(
             (const int*)D, (const int*)want, (const float*)alpha0,
             (const float*)kmask, (const int8_t*)mism, (const float*)pfac,
             (const float*)nxt, nullptr, nullptr, (float*)acap, (float*)lscap,
             Dmax, B, N, theta_ratio);
     } else {
-        cudaFuncSetAttribute(paint_fwd_kernel<false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)shmem);
+        e = cudaFuncSetAttribute(paint_fwd_kernel<false>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)shmem);
+        if (e != cudaSuccess) return (int)e;
         paint_fwd_kernel<false><<<B, THREADS, shmem, st>>>(
             (const int*)D, nullptr, (const float*)alpha0,
             (const float*)kmask, (const int8_t*)mism, (const float*)pfac,

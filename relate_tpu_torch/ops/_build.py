@@ -27,13 +27,14 @@ BUILD_DIR = os.path.join(_PKG, "build")
 
 BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-# The merge scan's weighted averages w*x + (1-w)*y decide a discrete merge
-# list: they must round as two products and a sum, like the plain version
-# and the JAX kernel, so that file is built without FMA contraction.
+# The merge scans' weighted averages w*x + (1-w)*y decide a discrete merge
+# list: they must round as two products and a sum, like the plain versions
+# and the JAX kernels, so those files are built without FMA contraction.
 EXTRA_FLAGS: Dict[str, List[str]] = {
     "merge_scan": ["-fmad=false"],
+    "merge_scan_inc": ["-fmad=false"],
 }
-SOURCES = ("paint_fwd", "paint_bwd", "merge_scan")
+SOURCES = ("paint_fwd", "paint_bwd", "merge_scan", "merge_scan_inc")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

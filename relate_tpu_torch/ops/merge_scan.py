@@ -1,4 +1,5 @@
-"""MinMatch merge scan: the CUDA kernels (N <= 2048) and the plain version.
+"""MinMatch merge scan: the dense CUDA kernels (N <= 2048), their plain
+version, and the route to the incremental scan above that.
 
 Counterpart of ``relate_tpu/ops/merge_scan.py`` (behavioural reference
 ``include/src/tree_builder.cpp``). The scan runs N-1 sequential steps on a
@@ -21,9 +22,10 @@ traffic. What the design does about it: ``csrc/merge_scan.cu`` enqueues
 three small launches per step from one C call, with the chosen pair kept on
 the card, so the host never waits inside the scan.
 
-Sizes above ``MAX_N_LARGE`` are the route of the TPU kernel that is not
-ported yet (B7, the incremental kernel of ``merge_scan_inc.py``) and raise
-``NotImplementedError``.
+Sizes above ``MAX_N_LARGE``, up to ``MAX_N_INC``, go to the incremental scan
+of ``merge_scan_inc.py`` (amortised O(N) work a step in place of O(N^2); its
+tie hash has no step term and its clade-prior row minima are the reference's
+stale ones, so its lists are its own). Larger sizes raise ``ValueError``.
 """
 from __future__ import annotations
 
@@ -36,8 +38,9 @@ from . import _build
 INF = 3.0e38   # a large finite float32, not infinity (as the JAX kernel)
 MAX_N_SMALL = 1024   # up to here the kernel that also emits the clade rows
 MAX_N_LARGE = 2048   # up to here the kernel without clade state
+MAX_N_INC = 16384    # up to here the incremental scan (merge_scan_inc.py)
 
-launches = {"merge_scan": 0, "merge_scan_large": 0}
+launches = {"merge_scan": 0, "merge_scan_large": 0, "merge_scan_inc": 0}
 
 _M32 = 0xFFFFFFFF
 
@@ -155,15 +158,12 @@ def clades_from_merges(cis, cjs, N: int):
         anc = torch.where(live, parent[anc.clamp(min=0)], anc)
 
 
-def _check_inputs(d, dcf):
+def _check_inputs(d, dcf, max_n: int):
     if d.dim() != 2 or d.shape[0] != d.shape[1]:
         raise ValueError(f"d must be square, got {tuple(d.shape)}")
     N = d.shape[0]
-    if N > MAX_N_LARGE:
-        raise NotImplementedError(
-            f"merge scan for N = {N} > {MAX_N_LARGE}: the route of the TPU "
-            "kernel B7 (the incremental kernel of merge_scan_inc.py) is not "
-            "ported yet")
+    if N > max_n:
+        raise ValueError(f"merge scan supports N <= {max_n} (got {N})")
     if N < 2:
         raise ValueError("merge scan needs N >= 2")
     for name, t in (("d", d), ("dcf", dcf)):
@@ -229,7 +229,7 @@ def merge_scan_large(d, dcf, use_cf, threshold, threshold_cf, seed):
     """The scan without clade state (replaces ``_run_large``): merge lists
     (cis, cjs (N-1,) int32) only, for any 2 <= N <= ``MAX_N_LARGE``. A CUDA
     tensor goes to the kernel, a CPU tensor to the plain version."""
-    _check_inputs(d, dcf)
+    _check_inputs(d, dcf, MAX_N_LARGE)
     if d.device.type == "cpu":
         return merge_scan_plain(d, dcf, use_cf, threshold, threshold_cf, seed,
                                 with_clades=False)
@@ -237,16 +237,21 @@ def merge_scan_large(d, dcf, use_cf, threshold, threshold_cf, seed):
 
 
 def merge_scan(d, dcf, use_cf, threshold, threshold_cf, seed):
-    """MinMatch merge scan (replaces ``merge_scan_pallas`` for N <=
-    ``MAX_N_LARGE``).
+    """MinMatch merge scan (replaces ``merge_scan_pallas``), 2 <= N <=
+    ``MAX_N_INC``.
 
     d, dcf: (N, N) float32 contiguous tensors on one device; neither is
     modified. Returns (cis, cjs (N-1,) int32, clades (N-1, N) float32). Up to
     ``MAX_N_SMALL`` one kernel emits all three; above it the large kernel
     emits the merge lists and ``clades_from_merges`` rebuilds the clades
-    (the same lists and clades either way).
+    (the same lists and clades either way); above ``MAX_N_LARGE`` the
+    incremental scan takes over (its own semantics, see its module).
     """
-    N = _check_inputs(d, dcf)
+    N = _check_inputs(d, dcf, MAX_N_INC)
+    if N > MAX_N_LARGE:
+        from .merge_scan_inc import merge_scan_incremental
+        return merge_scan_incremental(d, dcf, use_cf, threshold, threshold_cf,
+                                      seed)
     if N > MAX_N_SMALL:
         cis, cjs = merge_scan_large(d, dcf, use_cf, threshold, threshold_cf,
                                     seed)

@@ -43,6 +43,11 @@ from . import _build
 LOWER_RESCALE = 1e-10
 UPPER_RESCALE = 1e10
 
+# A block keeps its target's state row, the kmask row and (backward) one row
+# of mismatch bytes in shared memory: 9 N bytes, of the 232,448 a block of
+# this card can use.
+MAX_N = 232448 // 9
+
 launches = {"fwd": 0, "bwd": 0, "fwd_capture": 0, "bwd_capture": 0}
 
 _MODE_POST, _MODE_BETA, _MODE_CAP = 0, 1, 2
@@ -70,6 +75,10 @@ def _check_common(D, state, kmask, mism, pfac, nxt):
     if mism.dim() != 3:
         raise ValueError("mism must be (Dmax, B, N)")
     Dmax, B, N = mism.shape
+    if N > MAX_N:
+        raise ValueError(
+            f"the painting sweeps support N <= {MAX_N} (got {N}): a "
+            "target's rows must fit one block's shared memory")
     _check("mism", mism, torch.int8, (Dmax, B, N))
     _check("D", D, torch.int32, (B,))
     _check("state", state, torch.float32, (B, N))

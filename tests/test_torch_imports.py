@@ -35,9 +35,9 @@ def _module_names():
 
 def test_every_module_imports_without_jax():
     names = _module_names()
-    assert len(names) >= 23
+    assert len(names) >= 24
     for new in ("core.branch_association", "core.branch_association_device",
-                "core.mcmc"):
+                "core.mcmc", "ops.merge_scan_inc"):
         assert "relate_tpu_torch." + new in names
     code = (
         "import importlib, sys\n"
@@ -91,6 +91,8 @@ def test_build_names_every_source_and_hashes_its_text():
         assert target.startswith(str(PKG / "build"))
         assert "sm_90a" in " ".join(_build._flags(name))
     assert "-fmad=false" in _build._flags("merge_scan")
+    assert "-fmad=false" in _build._flags("merge_scan_inc")
+    assert "merge_scan_inc" in _build.SOURCES
     assert "-fmad=false" not in _build._flags("paint_fwd")
     ignored = (ROOT / ".gitignore").read_text().split()
     assert "relate_tpu_torch/build/" in ignored
@@ -116,6 +118,10 @@ def test_cpu_tensors_take_the_plain_versions():
     d = t(rng.random((N, N)).astype(np.float32))
     got = ms.merge_scan(d, torch.zeros_like(d), False, 1.0, 0.1, 7)
     ref = ms.merge_scan_plain(d, torch.zeros_like(d), False, 1.0, 0.1, 7)
+    assert all(torch.equal(x, y) for x, y in zip(got, ref))
+    from relate_tpu_torch.ops import merge_scan_inc as mi
+    got = mi.merge_scan_inc_lists(d, torch.zeros_like(d), False, 1.0, 0.1, 7)
+    ref = mi.merge_scan_inc_plain(d, torch.zeros_like(d), False, 1.0, 0.1, 7)
     assert all(torch.equal(x, y) for x, y in zip(got, ref))
     assert (dict(pk.launches), dict(ms.launches)) == before
 

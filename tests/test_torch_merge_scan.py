@@ -140,14 +140,42 @@ def test_inputs_are_not_modified_and_checked():
         tms.merge_scan(td[:, :8], tc, True, 1.0, 0.1, 3)
 
 
-def test_sizes_above_1024_name_the_missing_kernels():
-    """Sizes above 2048 name B7, the one merge-scan kernel still to port;
-    sizes up to 2048 are accepted by the large route."""
-    assert (tms.MAX_N_SMALL, tms.MAX_N_LARGE) == (1024, 2048)
-    big = torch.zeros((2049, 2049))
-    with pytest.raises(NotImplementedError, match="B7"):
+def test_sizes_above_1024_name_the_missing_kernels(monkeypatch):
+    """The limits of the three routes (no kernel is missing any more): up to
+    1024 the kernel with clade rows, up to 2048 the large one, up to 16384
+    the incremental scan, ``ValueError`` above. The limits are lowered here
+    so that the route can be taken at a small size."""
+    from relate_tpu_torch.ops import merge_scan_inc as tmi
+    assert (tms.MAX_N_SMALL, tms.MAX_N_LARGE, tms.MAX_N_INC) == \
+        (1024, 2048, 16384)
+    # the size is checked before anything is read: a 16385 x 16385 view of
+    # one element is enough
+    big = torch.zeros(1).expand(16385, 16385)
+    with pytest.raises(ValueError, match="supports N <= 16384"):
         tms.merge_scan(big, big, False, 1.0, 0.1, 0)
-    with pytest.raises(NotImplementedError, match="B7"):
-        tms.merge_scan_large(big, big, False, 1.0, 0.1, 0)
-    assert tms._check_inputs(big[:2048, :2048].contiguous(),
-                             big[:2048, :2048].contiguous()) == 2048
+    with pytest.raises(ValueError, match="supports N <= 16384"):
+        tmi.merge_scan_incremental(big, big, False, 1.0, 0.1, 0)
+    with pytest.raises(ValueError, match="supports N <= 2048"):
+        tms.merge_scan_large(big[:2049, :2049], big[:2049, :2049], False,
+                             1.0, 0.1, 0)
+    ok = torch.zeros((2048, 2048))
+    assert tms._check_inputs(ok, ok, tms.MAX_N_LARGE) == 2048
+
+    N = 40
+    d, dcf = _matrices("real", N, seed=9)
+    args = (torch.from_numpy(d), torch.from_numpy(dcf), True, 5.0, 0.01, 31)
+    calls = []
+    real_inc = tmi.merge_scan_incremental
+    monkeypatch.setattr(tmi, "merge_scan_incremental",
+                        lambda *a: calls.append(1) or real_inc(*a))
+    monkeypatch.setattr(tms, "MAX_N_SMALL", 8)
+    monkeypatch.setattr(tms, "MAX_N_LARGE", N - 1)     # N is "2049" now
+    got = tms.merge_scan(*args)
+    assert calls == [1]
+    want = tmi.merge_scan_inc_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[2], tms.clades_from_merges(got[0], got[1], N))
+    monkeypatch.setattr(tms, "MAX_N_LARGE", N)         # and "2048" again
+    tms.merge_scan(*args)
+    assert calls == [1]
+    assert tms.launches["merge_scan_inc"] == 0

@@ -195,3 +195,19 @@ def test_wrappers_refuse_wrong_inputs():
         tk.bwd_capture(ti["D"], ti["D"][:-1], ti["beta_end"], ti["kmask"],
                        ti["mism"], ti["pfac"], ti["nxt"], theta=THETA)
     assert all(v == 0 for v in tk.launches.values())
+
+
+def test_wrappers_refuse_rows_past_shared_memory():
+    """A target's rows live in one block's shared memory (9 N bytes of the
+    card's 232,448): N past that is refused with a clear error, N = 16384,
+    the merge scan's limit, is inside."""
+    assert 16384 <= tk.MAX_N == 25827
+    N = tk.MAX_N + 1
+    mism = torch.zeros((2, 1, N), dtype=torch.int8)
+    row = torch.zeros((1, N))
+    step = torch.zeros((1, 2))
+    D = torch.full((1,), 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="support N <= 25827"):
+        tk.fwd(D, row, row, mism, step, step, theta=THETA)
+    with pytest.raises(ValueError, match="support N <= 25827"):
+        tk.bwd_capture(D, D, row, row, mism, step, step, theta=THETA)

@@ -381,6 +381,68 @@ def test_run_all_matches_the_jax_package(stores, tmp_path, monkeypatch):
     assert all(m["age_begin"] <= m["age_end"] for m in mt)
 
 
+def test_run_all_on_the_incremental_route_writes_the_same_bytes(
+        stores, tmp_path, monkeypatch):
+    """``run_all`` of both packages with the incremental merge scan forced
+    on both sides (the route of every N > 2048): the JAX package by its
+    environment switch, the port by lowering the limit of its dense kernels.
+    Both packages' chains are replaced by one deterministic function of the
+    tree, so that the whole of the final ``.anc`` and ``.mut`` can be held
+    byte for byte: everything but the branch-length sampler is
+    deterministic given the merge seeds."""
+    import relate_tpu.ops.merge_scan_inc as jmi
+    from relate_tpu_torch.ops import merge_scan as tms
+    from relate_tpu_torch.ops import merge_scan_inc as tmi
+
+    def fixed_lengths(trees, *args, **kwargs):
+        out = []
+        for tr in trees:
+            M = len(tr.parent)
+            bl = 10.0 * np.asarray(tr.num_events, dtype=np.float64) \
+                + (np.arange(M) % 5) + 1.0
+            bl[M - 1] = 0.0
+            out.append(bl)
+        return out
+
+    prefix, tmp = stores["prefix"], stores["tmp"]
+    args = (prefix + ".haps", prefix + ".sample", str(tmp / "map.txt"))
+    monkeypatch.setenv("RELATE_TPU_MERGE_INC", "1")
+    monkeypatch.setenv("RELATE_TPU_PALLAS_INTERPRET", "1")
+    monkeypatch.setenv("RELATE_TPU_PAINT_DMAX_BUCKET", "8")
+    monkeypatch.setenv("RELATE_TPU_PAINT_L_BUCKET", "64")
+    monkeypatch.setattr(jtd, "_pallas_available", lambda n: True)
+    monkeypatch.setattr(jrelate.mcmc, "run_mcmc", fixed_lengths)
+    monkeypatch.setattr(trelate.mcmc, "run_mcmc", fixed_lengths)
+    jcalls, calls = [], []
+    real_jax, real_plain = jmi.merge_scan_incremental, tmi.merge_scan_inc_plain
+    monkeypatch.setattr(
+        jmi, "merge_scan_incremental",
+        lambda *a, **k: jcalls.append(1) or real_jax(*a, **k))
+    monkeypatch.setattr(tmi, "merge_scan_inc_plain",
+                        lambda *a: calls.append(1) or real_plain(*a))
+    cached = set(jtd._KERNEL_CACHE)
+    try:
+        jrelate.run_all(*args, str(tmp_path / "jax"), seed=1,
+                        memory_gb=MEMORY_GB, theta=THETA, verbose=False)
+    finally:
+        # the cache's key does not hold the environment switch
+        for k in set(jtd._KERNEL_CACHE) - cached:
+            del jtd._KERNEL_CACHE[k]
+    assert jcalls
+    monkeypatch.setattr(ttd, "default_merge_seeds", jax_merge_seeds)
+    monkeypatch.setattr(tms, "MAX_N_SMALL", 2)
+    monkeypatch.setattr(tms, "MAX_N_LARGE", 2)
+    out = trelate.run_all(*args, str(tmp_path / "port"), seed=1,
+                          memory_gb=MEMORY_GB, theta=THETA, verbose=False,
+                          device="cpu")
+    for ext in (".anc", ".mut"):
+        assert filecmp.cmp(str(tmp_path / "jax") + ext, out + ext,
+                           shallow=False), ext
+    anc = tancmut.read_anc_text(out + ".anc")
+    assert len(anc.seq) > stores["W"] and len(calls) >= len(anc.seq)
+    assert tms.launches["merge_scan_inc"] == 0
+
+
 def test_run_all_threads_identical(tmp_path, monkeypatch):
     """``threads=3`` must equal ``threads=1`` byte for byte. The chunk
     overlap constants are shrunk so that a 600-SNP panel splits into several

@@ -110,6 +110,38 @@ def test_section_matches_jax(monkeypatch, seed, N, L, start, end, mode, fb):
     assert len(res_t.anc.seq) >= 3          # the section did rebuild
 
 
+def test_section_matches_jax_on_the_incremental_route(monkeypatch):
+    """One section with the incremental merge scan forced on both sides
+    (the route of every N > 2048): the JAX package by its environment
+    switch, the port by lowering the limit of its dense kernels. Equal
+    section records. The size is used by no other test, and the section
+    program the JAX package compiled under the switch is dropped from its
+    cache, whose key does not hold the environment."""
+    from relate_tpu_torch.ops import merge_scan as tms
+    from relate_tpu_torch.ops import merge_scan_inc as tmi
+    monkeypatch.setenv("RELATE_TPU_MERGE_INC", "1")
+    monkeypatch.setattr(tms, "MAX_N_SMALL", 2)
+    monkeypatch.setattr(tms, "MAX_N_LARGE", 2)
+    import relate_tpu.ops.merge_scan_inc as jmi
+    calls, jcalls = [], []
+    real_plain, real_jax = tmi.merge_scan_inc_plain, jmi.merge_scan_incremental
+    monkeypatch.setattr(tmi, "merge_scan_inc_plain",
+                        lambda *a: calls.append(1) or real_plain(*a))
+    monkeypatch.setattr(
+        jmi, "merge_scan_incremental",
+        lambda *a, **k: jcalls.append(1) or real_jax(*a, **k))
+    cached = set(jtd._KERNEL_CACHE)
+    try:
+        res_j, res_t = _sections(monkeypatch, 3, 14, 66, 0, 59, 1, 0)
+    finally:
+        for k in set(jtd._KERNEL_CACHE) - cached:
+            del jtd._KERNEL_CACHE[k]
+    _assert_equal(res_j, res_t)
+    assert len(res_t.anc.seq) >= 3          # the section did rebuild
+    assert len(calls) >= len(res_t.anc.seq)  # every tree took the route
+    assert jcalls                            # traced into the JAX program
+
+
 def test_map_on_tree_block_equals_single():
     """Mapping a block of SNPs at once gives what one SNP at a time gives."""
     rng = np.random.default_rng(0)
