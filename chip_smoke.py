@@ -61,6 +61,8 @@ N_INC = 4096                   # the run_all path of the incremental merge scan
 N_INC_SMALL = 512              # the incremental scan's four small cases
 N_INC_ODD = 5008               # no multiple of 128 or of the block sizes
 N_INC_MAX = 16384              # the widest panel the port takes
+N_INC_EDGES = (2, 3, 9, 15, 100, 1000)   # blocks of B7's cluster left empty
+                                         # or ragged
 L_SNPS = 8192
 L_SNPS_INC = 4096              # of the N = 4096 panel
 SEED = 20240611
@@ -480,6 +482,14 @@ def random_cases(N):
             ("fallback_every_step", d, dcf, False, -1.0, 1.0, 7)]
 
 
+def edge_cases(N):
+    """``random_cases(N)`` and tie-heavy integers with the prior off."""
+    cases = random_cases(N)
+    d_, dcf_ = cases[2][1], cases[2][2]
+    return cases[:2] + [("ties", d_, dcf_, False, 1e-6, 0.01, 4242)] \
+        + cases[2:]
+
+
 def inc_bound_bytes(N, counts, use_cf):
     """Bytes the incremental scan must move for this run's counts: the four
     matrices read once by the set-up, per step eight rows read, four rows
@@ -494,21 +504,90 @@ def inc_bound_bytes(N, counts, use_cf):
             + counts["fallback_entries"] * 2 * 4 + 2 * (N - 1) * 4)
 
 
+def inc_timed(n, args, counts, profile=False):
+    """B7's time at width n on ``args``, per call and per step, its bound from
+    this run's counts and, with ``profile``, the device time of each of its
+    kernels."""
+    from relate_tpu_torch.ops import merge_scan_inc as mi
+    ms_k = time_ms(lambda: mi.merge_scan_inc_lists(*args),
+                   3 if n <= N_INC_ODD else 1)
+    out = {"ms": ms_k, "us_per_step": ms_k * 1e3 / max(n - 1, 1),
+           "repairs_per_step": counts["repairs"] / max(n - 1, 1),
+           "bound_ms": inc_bound_bytes(n, counts, args[2])
+           / HBM_BYTES_PER_S * 1e3}
+    if profile:
+        out["device_kernels"] = profiled(
+            lambda: mi.merge_scan_inc_lists(*args))["top"]
+    return out
+
+
+def inc_against_plain(detail, n, label, d_, dcf_, ucf, thr, thr_cf, seed,
+                      profile=False, timed=True):
+    """B7 against its plain version on one input: merge lists and the three
+    counts equal, the lists a tree on all leaves. Appends the record to
+    ``detail`` and returns it."""
+    from relate_tpu_torch.ops import merge_scan as ms
+    from relate_tpu_torch.ops import merge_scan_inc as mi
+    args = (d_, dcf_, ucf, thr, thr_cf, seed)
+    ck, cp = {}, {}
+    k = mi.merge_scan_inc_lists(*args, ck)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    p = mi.merge_scan_inc_plain(*args, cp)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    rec = {"N": n, "case": label, "use_cf": ucf,
+           "equal": torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]),
+           "repairs": ck["repairs"],
+           "fallback_steps": ck["fallback_steps"],
+           "fallback_entries": ck["fallback_entries"],
+           "plain_ms": plain_ms}
+    detail.append(rec)
+    if not rec["equal"]:
+        steps = [first_difference(x, y) for x, y in zip(k, p)]
+        fail(f"merge_scan_inc[N={n}, {label}]: merge lists differ from "
+             "the plain version (first at step "
+             f"{min(t for t in steps if t >= 0)})")
+    if ck != cp:
+        fail(f"merge_scan_inc[N={n}, {label}]: the kernel counted {ck}, "
+             f"the plain version {cp}")
+    clades = ms.clades_from_merges(k[0], k[1], n)
+    if float(clades[-1].sum()) != n or bool((clades.sum(dim=1) < 2).any()):
+        fail(f"merge_scan_inc[N={n}, {label}]: the merge lists are no "
+             "tree on all leaves")
+    if timed:
+        rec.update(inc_timed(n, args, ck, profile))
+    return rec
+
+
+def inc_edge_cases(detail):
+    """B7 at the edges of its cluster of 8 blocks: N = 2, 3, 9 and 15 leave
+    blocks without lanes, N = 100 and 1000 a ragged last block; continuous
+    and tie-heavy values, each with the clade prior off and on, and the
+    fallback at every step. At N = 1000 only the continuous cases (the
+    plain version of the tie-heavy ones takes a minute there)."""
+    for n in N_INC_EDGES:
+        for case in edge_cases(n):
+            if n > 100 and not case[0].startswith("continuous"):
+                continue
+            inc_against_plain(detail, n, *case, timed=False)
+
+
 def merge_scan_inc_row(mat_inc, mat_large):
     """B7, the incremental merge scan, against its plain version on the card
     (merge lists and the counts of repairs and fallback steps equal exactly):
-    four cases at N = 512, the posterior's distance matrix of the N = 4096
-    panel with the old tree's clade prior, and N = 5008 (no multiple of 128
-    or of the block sizes) with a band so narrow that a third of the steps
-    fall back. Against B6 at N = 2048 on a continuous matrix with the prior
-    off, where every minimum is unique and the two scans' semantics
-    coincide. A scan at N = 4096 that falls back at every step is timed and
-    checked to be a tree; its plain version would take a minute and a half.
-    Both N = 4096 scans are also run under ``torch.profiler`` for the device
-    time of each of their kernels. The widest scan the port takes,
-    N = 16384, is timed on a uniform random matrix with the prior on and
-    checked to be a tree; its plain version would take a quarter of an
-    hour."""
+    the cluster's edge sizes (``inc_edge_cases``), four cases at N = 512,
+    the posterior's distance matrix of the N = 4096 panel with the old
+    tree's clade prior, and N = 5008 (no multiple of 128 or of the block
+    sizes) with a band so narrow that a third of the steps fall back.
+    Against B6 at N = 2048 on a continuous matrix with the prior off, where
+    every minimum is unique and the two scans' semantics coincide. A scan at
+    N = 4096 that falls back at every step is timed and checked to be a
+    tree; its plain version would take a minute and a half. Both N = 4096
+    scans are also run under ``torch.profiler`` for the device time of each
+    of their kernels. The widest scan the port takes, N = 16384, is timed on
+    a uniform random matrix with the prior on and checked to be a tree; its
+    plain version would take a quarter of an hour."""
     from relate_tpu_torch.ops import merge_scan as ms
     from relate_tpu_torch.ops import merge_scan_inc as mi
     N = mat_inc.shape[0]
@@ -516,49 +595,13 @@ def merge_scan_inc_row(mat_inc, mat_large):
         fail(f"merge_scan_inc: N = {N} is not on the incremental route")
     detail = []
 
-    def against_plain(n, label, d_, dcf_, ucf, thr, thr_cf, seed):
-        args = (d_, dcf_, ucf, thr, thr_cf, seed)
-        ck, cp = {}, {}
-        k = mi.merge_scan_inc_lists(*args, ck)
-        torch.cuda.synchronize()
-        t0 = time.time()
-        p = mi.merge_scan_inc_plain(*args, cp)
-        torch.cuda.synchronize()
-        plain_ms = (time.time() - t0) * 1e3
-        rec = {"N": n, "case": label, "use_cf": ucf,
-               "equal": torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]),
-               "repairs": ck["repairs"],
-               "fallback_steps": ck["fallback_steps"],
-               "fallback_entries": ck["fallback_entries"],
-               "plain_ms": plain_ms}
-        detail.append(rec)
-        if not rec["equal"]:
-            steps = [first_difference(x, y) for x, y in zip(k, p)]
-            fail(f"merge_scan_inc[N={n}, {label}]: merge lists differ from "
-                 "the plain version (first at step "
-                 f"{min(t for t in steps if t >= 0)})")
-        if ck != cp:
-            fail(f"merge_scan_inc[N={n}, {label}]: the kernel counted {ck}, "
-                 f"the plain version {cp}")
-        clades = ms.clades_from_merges(k[0], k[1], n)
-        if float(clades[-1].sum()) != n or bool((clades.sum(dim=1) < 2).any()):
-            fail(f"merge_scan_inc[N={n}, {label}]: the merge lists are no "
-                 "tree on all leaves")
-        rec.update(timed(n, args, ck))
-        return rec
+    def against_plain(n, *case):
+        return inc_against_plain(detail, n, *case, profile=n == N)
 
     def timed(n, args, counts):
-        ms_k = time_ms(lambda: mi.merge_scan_inc_lists(*args),
-                       3 if n <= N_INC_ODD else 1)
-        out = {"ms": ms_k, "us_per_step": ms_k * 1e3 / (n - 1),
-               "repairs_per_step": counts["repairs"] / (n - 1),
-               "bound_ms": inc_bound_bytes(n, counts, args[2])
-               / HBM_BYTES_PER_S * 1e3}
-        if n == N:      # the main path's width: device time of each kernel
-            out["device_kernels"] = profiled(
-                lambda: mi.merge_scan_inc_lists(*args))["top"]
-        return out
+        return inc_timed(n, args, counts, profile=n == N)
 
+    inc_edge_cases(detail)
     for case in random_cases(N_INC_SMALL):
         against_plain(N_INC_SMALL, *case)
     if detail[-1]["fallback_steps"] != N_INC_SMALL - 1:
@@ -635,6 +678,7 @@ def merge_scan_inc_row(mat_inc, mat_large):
         repairs_per_step=main["repairs_per_step"],
         fallback_steps=main["fallback_steps"],
         clades_from_merges_ms=ms_c, device_kernels=main["device_kernels"],
+        cluster=mi.cluster_config(N),
         fallback_every_step=fb, at_n16384=widest,
         at_odd_n={k: odd[k] for k in (
             "N", "case", "ms", "us_per_step", "repairs_per_step",
@@ -670,6 +714,15 @@ def phase_kernels(panels):
          tolerance="sweeps: rows/sum rtol 1e-5, logscale+log(sum) atol 2e-3; "
                    "merge scans: exact")
     return res
+
+
+def phase_inc_edges():
+    """Only B7 at the cluster's edge sizes against its plain version
+    (``--phases inc_edges``, a short check of a new build)."""
+    from relate_tpu_torch.ops import merge_scan_inc as mi
+    detail = []
+    inc_edge_cases(detail)
+    emit("inc_edges", cases=detail, cluster=mi.cluster_config(N_INC))
 
 
 def reset_counts():
@@ -1149,7 +1202,9 @@ def main():
     # checkpoint) and FindEquivalentBranches crosses a window boundary
     memory_auto = auto_memory_gb()
     panels = {}
-    for N in (N_HAP, N_LARGE, N_INC):
+    uses_panels = {"kernels", "main_path", "run_all", "run_all_n4096",
+                   "profile"}
+    for N in (N_HAP, N_LARGE, N_INC) if phases & uses_panels else ():
         G, bp = make_panel(N, L_SNPS_INC if N == N_INC else L_SNPS)
         memory_gb = memory_auto
         if len(plan_chunks_and_windows(G, memory_gb)[1][0].boundaries) - 1 < 3:
@@ -1160,6 +1215,8 @@ def main():
          memory_gb_from_card=round(memory_auto, 3),
          memory_gb={N: p[2] for N, p in panels.items()})
     kernels = []
+    if "inc_edges" in phases:
+        phase_inc_edges()
     if "kernels" in phases:
         kernels = phase_kernels(panels)
         torch.cuda.empty_cache()

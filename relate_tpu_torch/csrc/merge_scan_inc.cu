@@ -25,21 +25,52 @@
 //   a step  fallback_kernel  grid-wide; returns at once unless the last
 //                            select found no candidate, else every block
 //                            reduces its rows of d + dt to one record
-//           step_kernel      ONE block: takes the pair (from select, or by
-//                            reducing the fallback records), reads rows i and
-//                            j of the four matrices, blends, maintains rm,
-//                            builds the dirty set, writes the merged row and
-//                            column, runs the repairs one after the other,
-//                            and selects the next pair
-// Repairs are a serial chain by definition (a rescan reads rm entries that an
-// earlier repair of the same step refreshed, and folds into the candidates a
-// later one reads), so one block loses no parallelism there; what it costs is
-// one SM's latency, and its 4 N strided column stores a step.
+//           step_kernel      ONE CLUSTER of 8 blocks (CL_THREADS each). Block
+//                            r owns the lanes (columns) [r C, r C + C),
+//                            C = ceil(N / 8) rounded up to 4, and holds the
+//                            (N,) state of its lanes in shared memory for the
+//                            launch. It takes the pair, blends rows i and j
+//                            over its lanes, maintains rm, flags its dirty
+//                            lanes, writes its lanes of row j and column j,
+//                            runs the repairs one after the other and
+//                            selects the next pair; every reduction is a
+//                            partial over its lanes, combined through
+//                            distributed shared memory.
+// Repairs are a serial chain by definition (a rescan folds into candidates
+// that a later rescan reads), and stay one after the other in ascending row
+// order. Two facts take the round trips to device memory out of the chain:
+//   - repairs never write the matrices and the dirty list is known before
+//     the first one, so the rows a repair reads (its lanes of d[w], dt[w]
+//     and, with the prior on, dcf[w], dcft[w]) are fetched STAGES - 1
+//     repairs ahead into a ring in shared memory (cp.async.cg);
+//   - the limits of a rescan are known before the first repair too: a
+//     refreshed rm[w] (hit rows and j) is the minimum of row w over the live
+//     lanes, and neither changes during the repairs; any other row's rm[w]
+//     and rmcf[w] is changed by no repair but its own. So the limits of up
+//     to BATCH repairs are reduced over the cluster in one exchange, and the
+//     owner of row w stores the refreshed value just before w's rescan.
+// A repair is then one pass of each block over its lanes, from shared
+// memory, and one exchange of the blocks' best candidates: a push of each
+// block's record into every block's slot, then one cluster barrier
+// (barrier.cluster arrive.release / wait.acquire). The slots alternate by
+// parity, so one barrier serves one exchange. All minima are lexicographic
+// (score, tie, lane) or plain fminf, so the combined result is the one-block
+// result bit for bit.
 //
-// Bound: the latency of the chain of 2 (N - 1) dependent launches and of the
-// block-wide passes inside step_kernel, not bytes: a step moves 8 rows in,
-// 4 rows and 4 strided columns out and 4 rows a repair (well under 1 MB at
-// N = 4096), against set-up passes that read the four matrices once.
+// Coherence. L1 is not coherent across SMs, and inside one launch a block
+// reads matrix entries that another block wrote (d[w][j] is stored by the
+// owner of lane w and read by the owner of lane j). So every read of d, dt,
+// dcf or dcft in step_kernel goes through L2 (__ldcg, cp.async.cg), the
+// merge reads everything before a cluster barrier and writes after it, and
+// a second barrier separates the writes from the first repair's reads. A
+// block leaves only after the last exchange, so no block reads or writes the
+// shared memory of a block that has ended.
+//
+// Bound: the latency of the chain of 2 (N - 1) dependent launches and, inside
+// step_kernel, of one cluster exchange a repair plus a few a step; not bytes:
+// a step moves 8 rows in, 4 rows and 4 strided columns out and 4 rows a
+// repair (well under 1 MB at N = 4096), against set-up passes that read the
+// four matrices once.
 //
 // The merge reads everything before it writes anything: the new column is
 // blended from the OLD columns (the dense scans of merge_scan.cu blend it from
@@ -56,17 +87,26 @@
 // Element offsets a * N + b reach 2.7e8 at N = 16384 and stay inside int;
 // pointer arithmetic is done in size_t.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr float INF = 3.0e38f;
 constexpr int ROW_THREADS = 256;
-constexpr int STEP_THREADS = 1024;
+constexpr int SELECT_THREADS = 1024;
 constexpr int FB_BLOCKS = 528;     // fallback grid: 4 blocks an SM
-constexpr int F_ROWS = 9;          // (N,) float vectors of the scan state
-constexpr int I_ROWS = 5;          // (N,) int vectors of the scan state
+constexpr int CLUSTER = 8;         // blocks of the step's cluster (portable)
+constexpr int CL_THREADS = 512;    // threads of each of its blocks
+constexpr int CL_WARPS = CL_THREADS / 32;
+constexpr int STAGES = 4;          // ring of rows fetched ahead (>= 2)
+constexpr int BATCH = 64;          // repairs whose limits share one exchange
+constexpr int STATE_VECS = 8;      // (C,) vectors a block keeps in shared
+constexpr int F_ROWS = 5;          // (N,) float vectors of the scan state
+constexpr int I_ROWS = 3;          // (N,) int vectors of the scan state
 constexpr int SEL_INTS = 8;        // the scalars of State::sel
 constexpr unsigned FULL = 0xffffffffu;
 // Lanes a thread handles at once. Every pass below first starts the loads of
@@ -88,11 +128,8 @@ struct State {
     float *rm, *rmcf;              // cached row minima of d and dcf
     float *cand_s, *cand_t;        // cached candidate: score, tie key
     float *sizes;                  // cluster sizes
-    float *nrow, *ncol, *nrow_cf, *ncol_cf;   // the blended row and column
     int *cand_p;                   // cached candidate: partner, -1 if none
     int *active, *conv;            // live rows; node id of each row
-    int *flags;                    // bit 0 dirty, bit 1 hit
-    int *dlist;                    // the dirty rows in ascending order
     int *sel;     // [0] a, [1] b, [2] no row has a candidate,
                   // [4] repairs so far, [5] fallback steps so far,
                   // [6], [7] low and high word of the live entries of d
@@ -179,13 +216,8 @@ __device__ __forceinline__ float row_min(const State& s, const float* mat,
     return block_min(m, buf);
 }
 
-// Full pass of the block over row w: rebuilds the row's candidate; with FOLD
-// every other live row c takes w as its candidate where (eff, tie) improves
-// on its cached one. As in the twin a row without a candidate (score INF)
-// still takes the tie key and the partner of a smaller tie. Ends with a
-// barrier: the caches are coherent for the next pass.
-template <bool FOLD>
-__device__ __forceinline__ void rescan(const State& s, int w, Cand* buf) {
+// Full pass of the block over row w (set-up): builds the row's candidate.
+__device__ __forceinline__ void scan_row(const State& s, int w, Cand* buf) {
     const int N = s.N;
     const size_t rw = (size_t)w * N;
     const float lim = s.rm[w] + s.thr, lim_cf = s.rmcf[w] + s.thrcf;
@@ -193,8 +225,7 @@ __device__ __forceinline__ void rescan(const State& s, int w, Cand* buf) {
     Cand best = worst();
     for (int c0 = threadIdx.x; c0 < N; c0 += U * B) {
         int act[U];
-        float dwc[U], dcw[U], rmc[U], fwc[U] = {}, fcw[U] = {}, rmf[U] = {},
-            cs[U] = {}, ct[U] = {};
+        float dwc[U], dcw[U], rmc[U], fwc[U] = {}, fcw[U] = {}, rmf[U] = {};
 #pragma unroll
         for (int u = 0; u < U; ++u) {
             const int c = c0 + u * B;
@@ -207,10 +238,6 @@ __device__ __forceinline__ void rescan(const State& s, int w, Cand* buf) {
                 fwc[u] = in ? s.dcf[rw + c] : 0.0f;
                 fcw[u] = in ? s.dcft[rw + c] : 0.0f;
                 rmf[u] = in ? s.rmcf[c] : 0.0f;
-            }
-            if (FOLD) {
-                cs[u] = in ? s.cand_s[c] : 0.0f;
-                ct[u] = in ? s.cand_t[c] : 0.0f;
             }
         }
 #pragma unroll
@@ -226,11 +253,6 @@ __device__ __forceinline__ void rescan(const State& s, int w, Cand* buf) {
             const float tie = tie_hash(w, c, s.mix);
             const Cand x{eff, tie, c};
             if (eff < INF && better(x, best)) best = x;
-            if (FOLD && (eff < cs[u] || (eff == cs[u] && tie < ct[u]))) {
-                s.cand_s[c] = eff;
-                s.cand_t[c] = tie;
-                s.cand_p[c] = w;
-            }
         }
     }
     best = block_best(best, buf);
@@ -240,7 +262,6 @@ __device__ __forceinline__ void rescan(const State& s, int w, Cand* buf) {
         s.cand_t[w] = have ? best.tie : INF;
         s.cand_p[w] = have ? best.idx : -1;
     }
-    __syncthreads();
 }
 
 // The live row with the least (score, tie, row) and its partner into sel, or
@@ -296,11 +317,11 @@ __global__ void __launch_bounds__(ROW_THREADS) init_min_kernel(State s) {
 
 __global__ void __launch_bounds__(ROW_THREADS) init_cand_kernel(State s) {
     __shared__ Cand buf[ROW_THREADS / 32];
-    rescan<false>(s, blockIdx.x, buf);
+    scan_row(s, blockIdx.x, buf);
 }
 
-__global__ void __launch_bounds__(STEP_THREADS) select_kernel(State s) {
-    __shared__ Cand buf[STEP_THREADS / 32];
+__global__ void __launch_bounds__(SELECT_THREADS) select_kernel(State s) {
+    __shared__ Cand buf[SELECT_THREADS / 32];
     select(s, buf);
 }
 
@@ -325,23 +346,150 @@ __global__ void __launch_bounds__(ROW_THREADS) fallback_kernel(State s) {
     if (threadIdx.x == 0) s.fb[blockIdx.x] = best;
 }
 
-__global__ void __launch_bounds__(STEP_THREADS) step_kernel(State s, int t) {
-    __shared__ Cand cbuf[STEP_THREADS / 32];
-    __shared__ float fbuf[STEP_THREADS / 32];
-    __shared__ int wcount[STEP_THREADS / 32];
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int N = s.N;
+// Lanes a block of the step's cluster owns: ceil(N / CLUSTER) rounded up to
+// a multiple of 4, so that a block's first lane starts a 16-byte piece of
+// every row that does.
+__host__ __device__ __forceinline__ int chunk_of(int N) {
+    return ((N + CLUSTER - 1) / CLUSTER + 3) & ~3;
+}
 
-    // the pair of this step
+// Floats of one slice of a ring stage: a block's lanes of one row, copied as
+// whole 16-byte pieces from the piece that holds the first lane.
+__host__ __device__ __forceinline__ int slice_of(int N) {
+    return chunk_of(N) + 8;
+}
+
+// Dynamic shared memory of a step block: the ring of STAGES stages of four
+// slices, then STATE_VECS vectors of its lanes.
+__host__ __device__ __forceinline__ size_t step_smem_bytes(int N) {
+    return ((size_t)STAGES * 4 * slice_of(N)
+            + (size_t)STATE_VECS * chunk_of(N)) * sizeof(float);
+}
+
+// A block's best candidate as it is exchanged in the cluster; `partner` is
+// the candidate's cached partner, for the select.
+struct Rec {
+    float score;
+    float tie;
+    int idx;
+    int partner;
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(d), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING) : "memory");
+}
+
+// Start copying the block's lanes [lo, hi) of row w of d, dt (and dcf, dcft
+// with the prior on) into `stage` through L2. Slice m starts with the
+// 16-byte piece that holds d[w][lo]; lane c is then at (w N + lo) % 4 +
+// c - lo. The last piece of the last row stops at the end of the matrix.
+__device__ __forceinline__ void fetch_row(const State& s, float* stage, int w,
+                                          int lo, int hi, int SL) {
+    if (lo >= hi) return;
+    const size_t e0 = (size_t)w * s.N + lo, a0 = e0 & ~(size_t)3;
+    const int pieces = (int)(((size_t)w * s.N + hi - a0 + 3) >> 2);
+    const size_t end = (size_t)s.N * s.N;
+    const int nsl = s.use_cf ? 4 : 2;
+    for (int q = threadIdx.x; q < pieces * nsl; q += CL_THREADS) {
+        const int m = q / pieces, p = q - m * pieces;
+        const float* mat = m == 0 ? s.d : m == 1 ? s.dt : m == 2 ? s.dcf
+                                                                   : s.dcft;
+        const size_t at = a0 + 4 * (size_t)p;
+        const int bytes = end - at >= 4 ? 16 : (int)(end - at) * 4;
+        cp_async16(stage + m * SL + 4 * p, mat + at, bytes);
+    }
+}
+
+// Best candidate of the block, to warp 0 (the other warps get worst()).
+// `buf`: one slot a warp; the caller orders the slots' reuse.
+__device__ __forceinline__ Cand block_best_w0(Cand c, Cand* buf) {
+    c = warp_best(c);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (lane == 0) buf[warp] = c;
+    __syncthreads();
+    if (warp != 0) return worst();
+    return warp_best(lane < CL_WARPS ? buf[lane] : worst());
+}
+
+// Push warp 0's record into slot `rank` of `slots` in every block of the
+// cluster (lane r writes block r's).
+__device__ __forceinline__ void push_rec(cg::cluster_group& cluster,
+                                         Rec* slots, int rank, Rec x) {
+    const int lane = threadIdx.x & 31;
+    if (threadIdx.x < 32 && lane < CLUSTER)
+        cluster.map_shared_rank(slots, lane)[rank] = x;
+}
+
+// Least record over the CLUSTER slots, to every thread.
+__device__ __forceinline__ Rec best_of(const Rec* slots) {
+    Rec b = slots[0];
+    for (int r = 1; r < CLUSTER; ++r) {
+        const Rec x = slots[r];
+        if (better(Cand{x.score, x.tie, x.idx}, Cand{b.score, b.tie, b.idx}))
+            b = x;
+    }
+    return b;
+}
+
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(CL_THREADS)
+step_kernel(State s, int t) {
+    extern __shared__ __align__(16) float smem[];
+    __shared__ Cand wbuf[CL_WARPS];
+    __shared__ Rec xc[2][CLUSTER];           // best-candidate slots, by parity
+    __shared__ float xlim[2][CLUSTER][BATCH];  // limits' partials: rm, rmcf
+    __shared__ int xcnt[CLUSTER];            // dirty lanes of each block
+    __shared__ int xpre[CLUSTER + 1];        // their prefix sums
+    __shared__ int bw[BATCH + STAGES];       // dirty-list entries of a batch
+    __shared__ int wcount[CL_WARPS];
+
+    cg::cluster_group cluster = cg::this_cluster();
+    const int N = s.N, C = chunk_of(N), SL = slice_of(N);
+    const int rank = (int)cluster.block_rank();
+    const int lo = min(N, rank * C), hi = min(N, lo + C);
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    float* ring = smem;
+    float* rm = ring + STAGES * 4 * SL;
+    float* rmcf = rm + C;
+    float* cs = rmcf + C;
+    float* ct = cs + C;
+    int* cp = (int*)(ct + C);
+    int* act = cp + C;
+    int* flg = act + C;                      // bit 0 dirty, bit 1 hit
+    int* llist = flg + C;                    // dirty lanes | hit << 30
+    int par = 0;                             // parity of the next exchange
+
+    for (int c = lo + tid; c < hi; c += CL_THREADS) {
+        const int l = c - lo;
+        rm[l] = s.rm[c];
+        rmcf[l] = s.rmcf[c];
+        cs[l] = s.cand_s[c];
+        ct[l] = s.cand_t[c];
+        cp[l] = s.cand_p[c];
+        act[l] = s.active[c];
+    }
+
+    // the pair of this step (every block reduces the fallback records)
     const int fell_back = s.sel[2];
     int a, b;
     if (fell_back) {
         Cand best = worst();
-        for (int k = tid; k < FB_BLOCKS; k += STEP_THREADS) {
+        for (int k = tid; k < FB_BLOCKS; k += CL_THREADS) {
             const Cand x = s.fb[k];
             if (better(x, best)) best = x;
         }
-        best = block_best(best, cbuf);
+        best = block_best(best, wbuf);
         a = best.idx / N;
         b = best.idx % N;
     } else {
@@ -353,111 +501,254 @@ __global__ void __launch_bounds__(STEP_THREADS) step_kernel(State s, int t) {
     const float si = s.sizes[i], sj = s.sizes[j];
     const float w = si / (si + sj), w1 = 1.0f - w;
 
-    // read rows i and j of the four matrices, blend, maintain rm, mark the
-    // dirty rows; nothing of the matrices is written yet
-    for (int c0 = tid; c0 < N; c0 += U * STEP_THREADS) {
-        float ri_d[U], rj_d[U], ci[U], cj[U], ri_f[U], rj_f[U], ci_f[U],
-            cj_f[U], rmc[U];
-        int act[U], p[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-            const int c = c0 + u * STEP_THREADS;
-            const bool in = c < N;
-            ri_d[u] = in ? s.d[ri + c] : 0.0f;
-            rj_d[u] = in ? s.d[rj + c] : 0.0f;
-            ci[u] = in ? s.dt[ri + c] : 0.0f;
-            cj[u] = in ? s.dt[rj + c] : 0.0f;
-            ri_f[u] = in ? s.dcf[ri + c] : 0.0f;
-            rj_f[u] = in ? s.dcf[rj + c] : 0.0f;
-            ci_f[u] = in ? s.dcft[ri + c] : 0.0f;
-            cj_f[u] = in ? s.dcft[rj + c] : 0.0f;
-            rmc[u] = in ? s.rm[c] : 0.0f;
-            act[u] = in ? s.active[c] : 0;
-            p[u] = in ? s.cand_p[c] : -1;
+    // read rows i and j over the block's lanes, blend into ring stage 0,
+    // maintain rm, flag the dirty lanes; nothing of the matrices is written
+    // before the cluster barrier
+    for (int c = lo + tid; c < hi; c += CL_THREADS) {
+        const int l = c - lo;
+        const float ci = __ldcg(s.dt + ri + c), cj = __ldcg(s.dt + rj + c);
+        const float nc = w * ci + w1 * cj;
+        ring[l] = w * __ldcg(s.d + ri + c) + w1 * __ldcg(s.d + rj + c);
+        ring[SL + l] = nc;
+        if (s.use_cf) {
+            ring[2 * SL + l] = w * __ldcg(s.dcf + ri + c)
+                               + w1 * __ldcg(s.dcf + rj + c);
+            ring[3 * SL + l] = w * __ldcg(s.dcft + ri + c)
+                               + w1 * __ldcg(s.dcft + rj + c);
         }
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-            const int c = c0 + u * STEP_THREADS;
-            if (c >= N) continue;
-            const float nc = w * ci[u] + w1 * cj[u];
-            s.nrow[c] = w * ri_d[u] + w1 * rj_d[u];
-            s.ncol[c] = nc;
-            s.nrow_cf[c] = w * ri_f[u] + w1 * rj_f[u];
-            s.ncol_cf[c] = w * ci_f[u] + w1 * cj_f[u];
-            const bool other = act[u] && c != i && c != j;
-            // the row's cached minimum sat in column i or j: it needs a
-            // rescan; any other row's minimum still stands (the new entry
-            // is no smaller)
-            const bool hit = other && (ci[u] == rmc[u] || cj[u] == rmc[u]);
-            if (other && !hit) s.rm[c] = fminf(rmc[u], nc);
-            bool dirty = (act[u] && (p[u] == i || p[u] == j)) || hit;
-            if (c == j) dirty = true;
-            if (c == i) dirty = false;
-            s.flags[c] = (dirty ? 1 : 0) | (hit ? 2 : 0);
-        }
+        const bool other = act[l] && c != i && c != j;
+        // the row's cached minimum sat in column i or j: it needs a rescan;
+        // any other row's minimum still stands (the new entry is no smaller)
+        const bool hit = other && (ci == rm[l] || cj == rm[l]);
+        if (other && !hit) rm[l] = fminf(rm[l], nc);
+        bool dirty = (act[l] && (cp[l] == i || cp[l] == j)) || hit;
+        if (c == j) dirty = true;
+        if (c == i) dirty = false;
+        flg[l] = (dirty ? 1 : 0) | (hit ? 2 : 0);
     }
-    __syncthreads();
+    cluster.sync();             // every block has read rows i, j and sizes
 
-    // the merged row j and column j; on the diagonal the column's value
-    for (int c = tid; c < N; c += STEP_THREADS) {
+    // the block's lanes of the merged row j and column j; on the diagonal
+    // the column's value
+    for (int c = lo + tid; c < hi; c += CL_THREADS) {
+        const int l = c - lo;
         const size_t rc = (size_t)c * N;
-        const float nr = s.nrow[c], nc = s.ncol[c];
-        const float nrf = s.nrow_cf[c], ncf = s.ncol_cf[c];
+        const float nr = ring[l], nc = ring[SL + l];
         s.d[rj + c] = c == j ? nc : nr;
         s.dt[rj + c] = nc;
-        s.dcf[rj + c] = c == j ? ncf : nrf;
-        s.dcft[rj + c] = ncf;
         s.d[rc + j] = nc;
         s.dt[rc + j] = c == j ? nc : nr;
-        s.dcf[rc + j] = ncf;
-        s.dcft[rc + j] = c == j ? ncf : nrf;
+        if (s.use_cf) {
+            const float nrf = ring[2 * SL + l], ncf = ring[3 * SL + l];
+            s.dcf[rj + c] = c == j ? ncf : nrf;
+            s.dcft[rj + c] = ncf;
+            s.dcf[rc + j] = ncf;
+            s.dcft[rc + j] = c == j ? ncf : nrf;
+        }
     }
     if (tid == 0) {
-        s.cis[t] = s.conv[i];
-        s.cjs[t] = s.conv[j];
-        s.active[i] = 0;
-        s.cand_s[i] = INF;
-        s.sizes[j] = si + sj;
-        s.conv[j] = N + t;
+        if (lo <= i && i < hi) {
+            act[i - lo] = 0;
+            cs[i - lo] = INF;
+        }
+        if (rank == 0) {
+            s.cis[t] = s.conv[i];
+            s.cjs[t] = s.conv[j];
+            s.sizes[j] = si + sj;
+            s.conv[j] = N + t;
+        }
     }
-    __syncthreads();
 
-    // the dirty rows in ascending order (ordered compaction of the flags)
-    const int nw = STEP_THREADS / 32;
-    int total = 0;
-    for (int base = 0; base < N; base += STEP_THREADS) {
+    // the block's dirty lanes in ascending order (ordered compaction)
+    int nloc = 0;
+    for (int base = lo; base < hi; base += CL_THREADS) {
         const int c = base + tid;
-        const bool f = c < N && (s.flags[c] & 1);
-        const unsigned bal = __ballot_sync(FULL, f);
+        const int f = c < hi ? flg[c - lo] : 0;
+        const unsigned bal = __ballot_sync(FULL, f & 1);
         if (lane == 0) wcount[warp] = __popc(bal);
         __syncthreads();
         int before = 0, round = 0;
-        for (int k = 0; k < nw; ++k) {
+        for (int k = 0; k < CL_WARPS; ++k) {
             const int v = wcount[k];
             if (k < warp) before += v;
             round += v;
         }
-        if (f) s.dlist[total + before + __popc(bal & ((1u << lane) - 1u))] = c;
-        total += round;
+        if (f & 1)
+            llist[nloc + before + __popc(bal & ((1u << lane) - 1u))] =
+                c | ((f & 2) << 29);
+        nloc += round;
         __syncthreads();
     }
-
-    // the repairs, one after the other: rm is refreshed for hit rows and j,
-    // rmcf for row j only (the other rows keep their stale clade-prior minima)
-    for (int k = 0; k < total; ++k) {
-        const int r = s.dlist[k];
-        if ((s.flags[r] & 2) || r == j) {
-            const float m = row_min(s, s.d, r, fbuf);
-            if (tid == 0) s.rm[r] = m;
-        }
-        if (r == j) {
-            const float m = row_min(s, s.dcf, r, fbuf);
-            if (tid == 0) s.rmcf[r] = m;
-        }
-        __syncthreads();
-        rescan<true>(s, r, cbuf);
-    }
+    if (tid < CLUSTER) cluster.map_shared_rank(xcnt, tid)[rank] = nloc;
+    cluster.sync();             // the merge's writes and the counts are seen
     if (tid == 0) {
+        xpre[0] = 0;
+        for (int r = 0; r < CLUSTER; ++r) xpre[r + 1] = xpre[r] + xcnt[r];
+    }
+    __syncthreads();
+    const int total = xpre[CLUSTER];
+
+    // the repairs, in batches of BATCH: first the batch's rescan limits in
+    // one exchange, then each repair one pass and one exchange
+    constexpr int MASK = 0x3fffffff;
+    constexpr int RU = 16;      // loads of a lane in flight in a row minimum
+    for (int b0 = 0; b0 < total; b0 += BATCH) {
+        const int nb = min(BATCH, total - b0);
+        const int nw = min(BATCH + STAGES - 1, total - b0);
+        // the batch's entries of the dirty list (and those of the rows
+        // fetched ahead of its last repairs), read from the owners' lists
+        for (int e = tid; e < nw; e += CL_THREADS) {
+            const int g = b0 + e;
+            int r = 0;
+            while (g >= xpre[r + 1]) ++r;
+            bw[e] = cluster.map_shared_rank(llist, r)[g - xpre[r]];
+        }
+        __syncthreads();
+        if (b0 == 0) {
+            for (int p = 0; p < STAGES - 1; ++p) {
+                if (p < total)
+                    fetch_row(s, ring + p * 4 * SL, bw[p] & MASK, lo, hi, SL);
+                cp_async_commit();
+            }
+        }
+        // the limits' partials, one warp an entry: a refreshed row (hit, or
+        // j) takes its minimum over the block's live lanes, rmcf only for j;
+        // any other value is the owner's cached one
+        for (int e = warp; e < nb; e += CL_WARPS) {
+            const int wr = bw[e] & MASK;
+            const bool refresh = (bw[e] >> 30) || wr == j;
+            const bool own = lo <= wr && wr < hi;
+            float m = !refresh && own ? rm[wr - lo] : INF;
+            float mc = wr != j && own ? rmcf[wr - lo] : INF;
+            if (refresh) {
+                const size_t rw = (size_t)wr * N;
+                for (int c0 = lo + lane; c0 < hi; c0 += 32 * RU) {
+                    float v[RU], vc[RU];
+#pragma unroll
+                    for (int u = 0; u < RU; ++u) {
+                        const int c = c0 + 32 * u;
+                        v[u] = c < hi ? __ldcg(s.d + rw + c) : INF;
+                        vc[u] = c < hi && wr == j ? __ldcg(s.dcf + rw + c)
+                                                  : INF;
+                    }
+#pragma unroll
+                    for (int u = 0; u < RU; ++u) {
+                        const int c = c0 + 32 * u;
+                        if (c < hi && act[c - lo] && c != wr) {
+                            m = fminf(m, v[u]);
+                            mc = fminf(mc, vc[u]);
+                        }
+                    }
+                }
+                for (int o = 16; o > 0; o >>= 1) {
+                    m = fminf(m, __shfl_xor_sync(FULL, m, o));
+                    mc = fminf(mc, __shfl_xor_sync(FULL, mc, o));
+                }
+            }
+            if (lane < CLUSTER) {
+                float* dst = cluster.map_shared_rank(&xlim[0][0][0], lane);
+                dst[rank * BATCH + e] = m;
+                dst[(CLUSTER + rank) * BATCH + e] = mc;
+            }
+        }
+        cluster.sync();
+
+        for (int e = 0; e < nb; ++e) {
+            const int g = b0 + e;
+            // keep STAGES - 1 rows in flight: the next one goes into the
+            // stage that the last repair read
+            const int gn = g + STAGES - 1;
+            if (gn < total)
+                fetch_row(s, ring + (gn % STAGES) * 4 * SL, bw[gn - b0] & MASK,
+                          lo, hi, SL);
+            cp_async_commit();
+            cp_async_wait<STAGES - 1>();
+            __syncthreads();
+            const int wr = bw[e] & MASK;
+            const bool own = lo <= wr && wr < hi;
+            float lim = INF, limc = INF;
+            for (int r = 0; r < CLUSTER; ++r) {
+                lim = fminf(lim, xlim[0][r][e]);
+                limc = fminf(limc, xlim[1][r][e]);
+            }
+            // rm of a refreshed row, rmcf of row j: stored just before the
+            // row's own rescan (an earlier rescan read the old value)
+            if (own && tid == 0 && ((bw[e] >> 30) || wr == j)) {
+                rm[wr - lo] = lim;
+                if (wr == j) rmcf[wr - lo] = limc;
+            }
+            // the rescan of row wr over the block's lanes, folding wr into
+            // every other live lane's candidate. As in the twin a lane
+            // without a candidate (score INF) still takes the tie key and
+            // the partner of a smaller tie.
+            const float* st = ring + (g % STAGES) * 4 * SL
+                              + (int)(((size_t)wr * N + lo) & 3);
+            const float lr = lim + s.thr, lc = limc + s.thrcf;
+            Cand best = worst();
+            for (int c = lo + tid; c < hi; c += CL_THREADS) {
+                const int l = c - lo;
+                if (!act[l] || c == wr) continue;
+                const float dwc = st[l], dcw = st[SL + l];
+                float eff = INF;
+                if (dwc <= lr && dcw <= rm[l] + s.thr) {
+                    eff = dwc + dcw;
+                    if (s.use_cf && st[2 * SL + l] <= lc
+                        && st[3 * SL + l] <= rmcf[l] + s.thrcf)
+                        eff = 0.0f;
+                }
+                const float tie = tie_hash(wr, c, s.mix);
+                const Cand x{eff, tie, c};
+                if (eff < INF && better(x, best)) best = x;
+                if (eff < cs[l] || (eff == cs[l] && tie < ct[l])) {
+                    cs[l] = eff;
+                    ct[l] = tie;
+                    cp[l] = wr;
+                }
+            }
+            best = block_best_w0(best, wbuf);
+            push_rec(cluster, xc[par], rank,
+                     Rec{best.score, best.tie, best.idx, 0});
+            cluster.sync();
+            if (own && tid == 0) {
+                const Rec x = best_of(xc[par]);
+                const bool have = x.score < INF;
+                cs[wr - lo] = have ? x.score : INF;
+                ct[wr - lo] = have ? x.tie : INF;
+                cp[wr - lo] = have ? x.idx : -1;
+            }
+            par ^= 1;
+        }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // the live lane with the least (score, tie, lane) and its partner; the
+    // block's state goes back to device memory for the next launch
+    Cand best = worst();
+    for (int c = lo + tid; c < hi; c += CL_THREADS) {
+        const int l = c - lo;
+        const Cand x{cs[l], ct[l], c};
+        if (act[l] && x.score < INF && better(x, best)) best = x;
+        s.rm[c] = rm[l];
+        s.rmcf[c] = rmcf[l];
+        s.cand_s[c] = cs[l];
+        s.cand_t[c] = ct[l];
+        s.cand_p[c] = cp[l];
+        s.active[c] = act[l];
+    }
+    best = block_best_w0(best, wbuf);
+    push_rec(cluster, xc[par], rank,
+             Rec{best.score, best.tie, best.idx,
+                 best.score < INF ? cp[best.idx - lo] : 0});
+    // the last exchange, and the closing barrier: after it no block reads or
+    // writes another block's shared memory
+    cluster.sync();
+    if (rank == 0 && tid == 0) {
+        const Rec x = best_of(xc[par]);
+        const bool have = x.score < INF;
+        s.sel[0] = have ? x.idx : 0;
+        s.sel[1] = have ? x.partner : 0;
+        s.sel[2] = have ? 0 : 1;
         s.sel[4] += total;
         s.sel[5] += fell_back;
         if (fell_back) {
@@ -469,7 +760,6 @@ __global__ void __launch_bounds__(STEP_THREADS) step_kernel(State s, int t) {
             s.sel[7] = (int)(uint32_t)(sum >> 32);
         }
     }
-    select(s, cbuf);
 }
 
 }  // namespace
@@ -488,15 +778,45 @@ extern "C" void merge_scan_inc_scratch(int N, long long* n_float,
     *counters_at = sel + 4;
 }
 
-// d, dt, dcf, dcft: (N, N) float32 working copies, updated in place.
-// fstate, istate: uninitialised scratch of the sizes merge_scan_inc_scratch
-// gives. Outputs cis, cjs (N-1) int32; afterwards istate holds the counters
-// at the place merge_scan_inc_scratch names.
+// The step's launch configuration at this N, set up for launching: lets
+// step_kernel take its dynamic shared memory (above the 48 KB default) and
+// asks how many of its clusters the card can hold at once. info: blocks a
+// cluster, threads a block, dynamic shared bytes a block, and
+// cudaOccupancyMaxActiveClusters. Returns a CUDA error, or
+// cudaErrorLaunchOutOfResources when not one cluster fits.
+extern "C" int merge_scan_inc_cluster(int N, int* info) {
+    const size_t smem = step_smem_bytes(N);
+    info[0] = CLUSTER;
+    info[1] = CL_THREADS;
+    info[2] = (int)smem;
+    info[3] = 0;
+    cudaError_t e = cudaFuncSetAttribute(
+        step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(CLUSTER);
+    cfg.blockDim = dim3(CL_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    e = cudaOccupancyMaxActiveClusters(&info[3], step_kernel, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    return info[3] >= 1 ? 0 : (int)cudaErrorLaunchOutOfResources;
+}
+
+// d, dt, dcf, dcft: (N, N) float32 working copies, updated in place, each
+// aligned to 16 bytes. fstate, istate: uninitialised scratch of the sizes
+// merge_scan_inc_scratch gives. Outputs cis, cjs (N-1) int32; afterwards
+// istate holds the counters at the place merge_scan_inc_scratch names.
 extern "C" int merge_scan_inc_launch(void* d, void* dt, void* dcf, void* dcft,
                                      void* fstate, void* istate, void* cis,
                                      void* cjs, int N, int use_cf,
                                      float threshold, float threshold_cf,
                                      int seed, void* stream) {
+    if (((uintptr_t)d | (uintptr_t)dt | (uintptr_t)dcf | (uintptr_t)dcft)
+        & 15)
+        return (int)cudaErrorMisalignedAddress;
+    int info[4];
+    const int e0 = merge_scan_inc_cluster(N, info);
+    if (e0 != 0) return e0;
     cudaStream_t st = (cudaStream_t)stream;
     float* f = (float*)fstate;
     int* q = (int*)istate;
@@ -510,15 +830,9 @@ extern "C" int merge_scan_inc_launch(void* d, void* dt, void* dcf, void* dcft,
     s.cand_s = f + (size_t)2 * N;
     s.cand_t = f + (size_t)3 * N;
     s.sizes = f + (size_t)4 * N;
-    s.nrow = f + (size_t)5 * N;
-    s.ncol = f + (size_t)6 * N;
-    s.nrow_cf = f + (size_t)7 * N;
-    s.ncol_cf = f + (size_t)8 * N;
     s.cand_p = q;
     s.active = q + (size_t)N;
     s.conv = q + (size_t)2 * N;
-    s.flags = q + (size_t)3 * N;
-    s.dlist = q + (size_t)4 * N;
     s.sel = q + (size_t)I_ROWS * N;
     s.fb = (Cand*)(s.sel + SEL_INTS);
     s.cis = (int*)cis;
@@ -532,10 +846,10 @@ extern "C" int merge_scan_inc_launch(void* d, void* dt, void* dcf, void* dcft,
     init_state_kernel<<<(N + 255) / 256, 256, 0, st>>>(s);
     init_min_kernel<<<N, ROW_THREADS, 0, st>>>(s);
     init_cand_kernel<<<N, ROW_THREADS, 0, st>>>(s);
-    select_kernel<<<1, STEP_THREADS, 0, st>>>(s);
+    select_kernel<<<1, SELECT_THREADS, 0, st>>>(s);
     for (int t = 0; t < N - 1; ++t) {
         fallback_kernel<<<FB_BLOCKS, ROW_THREADS, 0, st>>>(s);
-        step_kernel<<<1, STEP_THREADS, 0, st>>>(s, t);
+        step_kernel<<<CLUSTER, CL_THREADS, info[2], st>>>(s, t);
         const cudaError_t e = cudaGetLastError();
         if (e != cudaSuccess) return (int)e;
     }

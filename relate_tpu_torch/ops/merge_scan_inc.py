@@ -34,9 +34,14 @@ pending column cache with its flush and the padding to a multiple of 128
 are TPU mechanics and have no counterpart here: on the card a merged
 column is a strided store, so ``csrc/merge_scan_inc.cu`` keeps ``d`` and
 its transpose (and ``dcf`` and its transpose) and writes row j and column j
-of each directly. What bounds it on the card: the latency of a chain of N-1
-dependent steps, each a few passes of one thread block over rows of N
-floats; see the source for the launch scheme.
+of each directly. A step is one thread-block cluster of 8 blocks, each
+owning an eighth of the columns and their state in shared memory; the
+repairs stay one after the other, each a pass over rows fetched ahead into
+shared memory and one exchange of the blocks' best candidates through
+distributed shared memory. Matrix entries written by one block are read by
+another inside the launch, so the kernel reads the matrices through L2 only.
+What bounds it on the card: the latency of a chain of N-1 dependent steps,
+each a cluster barrier a repair plus a few a step; see the source.
 
 ``merge_scan_inc_plain`` is the same scan in PyTorch ops on the device of
 ``d``. A CUDA tensor goes to the kernel or raises; only a CPU tensor takes
@@ -233,6 +238,23 @@ def _fns():
     scratch.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_longlong)] * 3
     scratch.restype = None
     return fn, scratch
+
+
+def cluster_config(N: int, device=None) -> dict:
+    """The step kernel's launch configuration at width N on the card:
+    blocks a cluster, threads a block, dynamic shared bytes a block and
+    ``cudaOccupancyMaxActiveClusters``. Raises if the card refuses the
+    shared memory or cannot hold one cluster."""
+    lib = _build.load("merge_scan_inc")
+    fn = lib.merge_scan_inc_cluster
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 4)()
+    with torch.cuda.device(device if device is not None else "cuda"):
+        err = fn(int(N), info)
+    _build.check(err, "merge_scan_inc (cluster configuration)")
+    return dict(blocks_per_cluster=info[0], threads_per_block=info[1],
+                dynamic_shared_bytes=info[2], max_active_clusters=info[3])
 
 
 def _launch(d, dcf, use_cf, threshold, threshold_cf, seed):

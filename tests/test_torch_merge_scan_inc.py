@@ -47,7 +47,8 @@ CASES = {"continuous": ("real", 5.0), "ties": ("ties", 1e-6),
 @pytest.mark.parametrize("seed", [11, 2**31 - 1])
 @pytest.mark.parametrize("case", list(CASES))
 @pytest.mark.parametrize("use_cf", [False, True])
-@pytest.mark.parametrize("N", [37, 40, 48, 130, 257])
+# N = 2, 3, 9 and 15 leave blocks of the card's cluster of 8 without lanes
+@pytest.mark.parametrize("N", [2, 3, 9, 15, 37, 40, 48, 130, 257])
 def test_plain_matches_numpy_twin(N, use_cf, case, seed):
     kind, thr = CASES[case]
     d, dcf = _matrices(kind, N, seed=N + seed % 1000)
