@@ -18,15 +18,19 @@ wrote:
   of the merge-scan kernel that also emits the clade rows.
 
 Phases, each printing one JSON line: ``device``, ``build``, ``inputs``,
-``kernels``, ``main_path`` (N = 1024), ``run_all`` (N = 2048),
-``run_all_n4096``, ``cpu_vs_card``; then the ``{"kernels": [...]}`` line,
+``kernels`` (the incremental merge scan also at N = 2 ... 1000, the sizes
+that leave blocks of its cluster of 8 empty or ragged, and with its
+cluster's launch configuration), ``main_path`` (N = 1024), ``run_all``
+(N = 2048), ``run_all_n4096``, ``cpu_vs_card``; then the ``{"kernels": [...]}`` line,
 the card's name and power limit as ``nvidia-smi`` gives them, and the result
 line. The launch counts are set to 0 just before each path and read just
 after it. Any phase that fails ends the run with a non-zero exit code. Needs
 a CUDA device and no network. ``--phases a,b`` runs a subset (the build always runs);
 ``--phases profile`` adds a ``torch.profiler`` breakdown of Paint and one
 section of BuildTopology at N = 1024 and of FindEquivalentBranches and
-InferBranchLengths at N = 2048, which the default run leaves out.
+InferBranchLengths at N = 2048, which the default run leaves out;
+``--phases inc_edges`` holds only the incremental merge scan against its
+plain version at those edge sizes (a short check after an edit of it).
 
 How the kernels are compared. The sweeps rescale a row whenever its sum
 leaves [1e-10, 1e10]; the kernel and the plain version add the row in

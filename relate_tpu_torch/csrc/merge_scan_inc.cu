@@ -25,7 +25,8 @@
 //   a step  fallback_kernel  grid-wide; returns at once unless the last
 //                            select found no candidate, else every block
 //                            reduces its rows of d + dt to one record
-//           step_kernel      ONE CLUSTER of 8 blocks (CL_THREADS each). Block
+//           cluster_step_kernel
+//                            ONE CLUSTER of 8 blocks (CL_THREADS each). Block
 //                            r owns the lanes (columns) [r C, r C + C),
 //                            C = ceil(N / 8) rounded up to 4, and holds the
 //                            (N,) state of its lanes in shared memory for the
@@ -60,15 +61,16 @@
 // Coherence. L1 is not coherent across SMs, and inside one launch a block
 // reads matrix entries that another block wrote (d[w][j] is stored by the
 // owner of lane w and read by the owner of lane j). So every read of d, dt,
-// dcf or dcft in step_kernel goes through L2 (__ldcg, cp.async.cg), the
-// merge reads everything before a cluster barrier and writes after it, and
-// a second barrier separates the writes from the first repair's reads. A
-// block leaves only after the last exchange, so no block reads or writes the
-// shared memory of a block that has ended.
+// dcf or dcft in cluster_step_kernel goes through L2 (__ldcg, cp.async.cg);
+// the merge writes no entry that another block reads during the merge (it
+// writes live lanes only, and row i is dead); and a cluster barrier
+// (release / acquire) separates the merge's writes from the first repair's
+// reads. A block leaves only after the last exchange, so no block reads or
+// writes the shared memory of a block that has ended.
 //
 // Bound: the latency of the chain of 2 (N - 1) dependent launches and, inside
-// step_kernel, of one cluster exchange a repair plus a few a step; not bytes:
-// a step moves 8 rows in, 4 rows and 4 strided columns out and 4 rows a
+// cluster_step_kernel, of one cluster exchange a repair plus a few a step; not
+// bytes: a step moves 8 rows in, 4 rows and 4 strided columns out and 4 rows a
 // repair (well under 1 MB at N = 4096), against set-up passes that read the
 // four matrices once.
 //
@@ -401,26 +403,52 @@ __device__ __forceinline__ void fetch_row(const State& s, float* stage, int w,
     const size_t e0 = (size_t)w * s.N + lo, a0 = e0 & ~(size_t)3;
     const int pieces = (int)(((size_t)w * s.N + hi - a0 + 3) >> 2);
     const size_t end = (size_t)s.N * s.N;
-    const int nsl = s.use_cf ? 4 : 2;
-    for (int q = threadIdx.x; q < pieces * nsl; q += CL_THREADS) {
-        const int m = q / pieces, p = q - m * pieces;
-        const float* mat = m == 0 ? s.d : m == 1 ? s.dt : m == 2 ? s.dcf
-                                                                   : s.dcft;
+    for (int p = threadIdx.x; p < pieces; p += CL_THREADS) {
         const size_t at = a0 + 4 * (size_t)p;
         const int bytes = end - at >= 4 ? 16 : (int)(end - at) * 4;
-        cp_async16(stage + m * SL + 4 * p, mat + at, bytes);
+        cp_async16(stage + 4 * p, s.d + at, bytes);
+        cp_async16(stage + SL + 4 * p, s.dt + at, bytes);
+        if (s.use_cf) {
+            cp_async16(stage + 2 * SL + 4 * p, s.dcf + at, bytes);
+            cp_async16(stage + 3 * SL + 4 * p, s.dcft + at, bytes);
+        }
     }
+}
+
+// Order-preserving 32-bit keys of a candidate's fields, for the warp's
+// integer minimum (redux.sync): a score's key orders as the float does (-0
+// is taken as +0, which compares equal to it); a tie key is an integer in
+// [0, 2^23) or INF.
+__device__ __forceinline__ unsigned score_key(float f) {
+    const unsigned u = __float_as_uint(f + 0.0f);
+    return (u >> 31) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_score(unsigned k) {
+    return __uint_as_float((k >> 31) ? (k & 0x7fffffffu) : ~k);
+}
+
+// The same as warp_best, in three integer minima of the warp.
+__device__ __forceinline__ Cand warp_best_redux(Cand c) {
+    const unsigned ks = score_key(c.score);
+    const unsigned ms = __reduce_min_sync(FULL, ks);
+    const unsigned kt = ks != ms ? 0xffffffffu
+                        : c.tie < INF ? (unsigned)c.tie : 0xfffffffeu;
+    const unsigned mt = __reduce_min_sync(FULL, kt);
+    const unsigned ki = ks == ms && kt == mt ? (unsigned)c.idx : 0xffffffffu;
+    const unsigned mi = __reduce_min_sync(FULL, ki);
+    return Cand{key_score(ms), mt == 0xfffffffeu ? INF : (float)mt, (int)mi};
 }
 
 // Best candidate of the block, to warp 0 (the other warps get worst()).
 // `buf`: one slot a warp; the caller orders the slots' reuse.
 __device__ __forceinline__ Cand block_best_w0(Cand c, Cand* buf) {
-    c = warp_best(c);
+    c = warp_best_redux(c);
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     if (lane == 0) buf[warp] = c;
     __syncthreads();
     if (warp != 0) return worst();
-    return warp_best(lane < CL_WARPS ? buf[lane] : worst());
+    return warp_best_redux(lane < CL_WARPS ? buf[lane] : worst());
 }
 
 // Push warp 0's record into slot `rank` of `slots` in every block of the
@@ -444,7 +472,7 @@ __device__ __forceinline__ Rec best_of(const Rec* slots) {
 }
 
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(CL_THREADS)
-step_kernel(State s, int t) {
+cluster_step_kernel(State s, int t) {
     extern __shared__ __align__(16) float smem[];
     __shared__ Cand wbuf[CL_WARPS];
     __shared__ Rec xc[2][CLUSTER];           // best-candidate slots, by parity
@@ -452,6 +480,7 @@ step_kernel(State s, int t) {
     __shared__ int xcnt[CLUSTER];            // dirty lanes of each block
     __shared__ int xpre[CLUSTER + 1];        // their prefix sums
     __shared__ int bw[BATCH + STAGES];       // dirty-list entries of a batch
+    __shared__ float blim[2][BATCH];         // their limits: rm, rmcf
     __shared__ int wcount[CL_WARPS];
 
     cg::cluster_group cluster = cg::this_cluster();
@@ -470,6 +499,9 @@ step_kernel(State s, int t) {
     int* llist = flg + C;                    // dirty lanes | hit << 30
     int par = 0;                             // parity of the next exchange
 
+    // the pair of this step and the block's state, loaded together
+    const int fell_back = s.sel[2];
+    int a = s.sel[0], b = s.sel[1];
     for (int c = lo + tid; c < hi; c += CL_THREADS) {
         const int l = c - lo;
         rm[l] = s.rm[c];
@@ -480,9 +512,7 @@ step_kernel(State s, int t) {
         act[l] = s.active[c];
     }
 
-    // the pair of this step (every block reduces the fallback records)
-    const int fell_back = s.sel[2];
-    int a, b;
+    // a fallback step: every block reduces the fallback records
     if (fell_back) {
         Cand best = worst();
         for (int k = tid; k < FB_BLOCKS; k += CL_THREADS) {
@@ -492,9 +522,6 @@ step_kernel(State s, int t) {
         best = block_best(best, wbuf);
         a = best.idx / N;
         b = best.idx % N;
-    } else {
-        a = s.sel[0];
-        b = s.sel[1];
     }
     const int i = min(a, b), j = max(a, b);
     const size_t ri = (size_t)i * N, rj = (size_t)j * N;
@@ -502,8 +529,7 @@ step_kernel(State s, int t) {
     const float w = si / (si + sj), w1 = 1.0f - w;
 
     // read rows i and j over the block's lanes, blend into ring stage 0,
-    // maintain rm, flag the dirty lanes; nothing of the matrices is written
-    // before the cluster barrier
+    // maintain rm, flag the dirty lanes
     for (int c = lo + tid; c < hi; c += CL_THREADS) {
         const int l = c - lo;
         const float ci = __ldcg(s.dt + ri + c), cj = __ldcg(s.dt + rj + c);
@@ -526,12 +552,18 @@ step_kernel(State s, int t) {
         if (c == i) dirty = false;
         flg[l] = (dirty ? 1 : 0) | (hit ? 2 : 0);
     }
-    cluster.sync();             // every block has read rows i, j and sizes
+    __syncthreads();
 
-    // the block's lanes of the merged row j and column j; on the diagonal
-    // the column's value
+    // the block's live lanes of the merged row j and column j; on the
+    // diagonal the column's value. A dead row or column is never read
+    // again, and row i is dead from now on: it is not written, so no block
+    // writes an entry that another block reads above (d[i][j] is read by
+    // the owner of lane j), and the merge needs no cluster barrier between
+    // its reads and its writes. Each lane's thread reads its lanes of rows
+    // i and j before it writes them.
     for (int c = lo + tid; c < hi; c += CL_THREADS) {
         const int l = c - lo;
+        if (c == i || !act[l]) continue;
         const size_t rc = (size_t)c * N;
         const float nr = ring[l], nc = ring[SL + l];
         s.d[rj + c] = c == j ? nc : nr;
@@ -546,17 +578,9 @@ step_kernel(State s, int t) {
             s.dcft[rc + j] = c == j ? ncf : nrf;
         }
     }
-    if (tid == 0) {
-        if (lo <= i && i < hi) {
-            act[i - lo] = 0;
-            cs[i - lo] = INF;
-        }
-        if (rank == 0) {
-            s.cis[t] = s.conv[i];
-            s.cjs[t] = s.conv[j];
-            s.sizes[j] = si + sj;
-            s.conv[j] = N + t;
-        }
+    if (tid == 0 && lo <= i && i < hi) {
+        act[i - lo] = 0;
+        cs[i - lo] = INF;
     }
 
     // the block's dirty lanes in ascending order (ordered compaction)
@@ -652,6 +676,16 @@ step_kernel(State s, int t) {
             }
         }
         cluster.sync();
+        for (int e = tid; e < nb; e += CL_THREADS) {
+            float m = INF, mc = INF;
+            for (int r = 0; r < CLUSTER; ++r) {
+                m = fminf(m, xlim[0][r][e]);
+                mc = fminf(mc, xlim[1][r][e]);
+            }
+            blim[0][e] = m;
+            blim[1][e] = mc;
+        }
+        // (the first repair's barrier orders blim before its reads)
 
         for (int e = 0; e < nb; ++e) {
             const int g = b0 + e;
@@ -666,11 +700,7 @@ step_kernel(State s, int t) {
             __syncthreads();
             const int wr = bw[e] & MASK;
             const bool own = lo <= wr && wr < hi;
-            float lim = INF, limc = INF;
-            for (int r = 0; r < CLUSTER; ++r) {
-                lim = fminf(lim, xlim[0][r][e]);
-                limc = fminf(limc, xlim[1][r][e]);
-            }
+            const float lim = blim[0][e], limc = blim[1][e];
             // rm of a refreshed row, rmcf of row j: stored just before the
             // row's own rescan (an earlier rescan read the old value)
             if (own && tid == 0 && ((bw[e] >> 30) || wr == j)) {
@@ -749,6 +779,11 @@ step_kernel(State s, int t) {
         s.sel[0] = have ? x.idx : 0;
         s.sel[1] = have ? x.partner : 0;
         s.sel[2] = have ? 0 : 1;
+        // every block has read sizes[i] and sizes[j] by now
+        s.cis[t] = s.conv[i];
+        s.cjs[t] = s.conv[j];
+        s.sizes[j] = si + sj;
+        s.conv[j] = N + t;
         s.sel[4] += total;
         s.sel[5] += fell_back;
         if (fell_back) {
@@ -779,9 +814,9 @@ extern "C" void merge_scan_inc_scratch(int N, long long* n_float,
 }
 
 // The step's launch configuration at this N, set up for launching: lets
-// step_kernel take its dynamic shared memory (above the 48 KB default) and
-// asks how many of its clusters the card can hold at once. info: blocks a
-// cluster, threads a block, dynamic shared bytes a block, and
+// cluster_step_kernel take its dynamic shared memory (above the 48 KB
+// default) and asks how many of its clusters the card can hold at once.
+// info: blocks a cluster, threads a block, dynamic shared bytes a block, and
 // cudaOccupancyMaxActiveClusters. Returns a CUDA error, or
 // cudaErrorLaunchOutOfResources when not one cluster fits.
 extern "C" int merge_scan_inc_cluster(int N, int* info) {
@@ -791,13 +826,14 @@ extern "C" int merge_scan_inc_cluster(int N, int* info) {
     info[2] = (int)smem;
     info[3] = 0;
     cudaError_t e = cudaFuncSetAttribute(
-        step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        cluster_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return (int)e;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(CLUSTER);
     cfg.blockDim = dim3(CL_THREADS);
     cfg.dynamicSmemBytes = smem;
-    e = cudaOccupancyMaxActiveClusters(&info[3], step_kernel, &cfg);
+    e = cudaOccupancyMaxActiveClusters(&info[3], cluster_step_kernel, &cfg);
     if (e != cudaSuccess) return (int)e;
     return info[3] >= 1 ? 0 : (int)cudaErrorLaunchOutOfResources;
 }
@@ -849,7 +885,7 @@ extern "C" int merge_scan_inc_launch(void* d, void* dt, void* dcf, void* dcft,
     select_kernel<<<1, SELECT_THREADS, 0, st>>>(s);
     for (int t = 0; t < N - 1; ++t) {
         fallback_kernel<<<FB_BLOCKS, ROW_THREADS, 0, st>>>(s);
-        step_kernel<<<CLUSTER, CL_THREADS, info[2], st>>>(s, t);
+        cluster_step_kernel<<<CLUSTER, CL_THREADS, info[2], st>>>(s, t);
         const cudaError_t e = cudaGetLastError();
         if (e != cudaSuccess) return (int)e;
     }
