@@ -20,17 +20,23 @@ wrote:
 Phases, each printing one JSON line: ``device``, ``build``, ``inputs``,
 ``kernels`` (the incremental merge scan also at N = 2 ... 1000, the sizes
 that leave blocks of its cluster of 8 empty or ragged, and with its
-cluster's launch configuration), ``main_path`` (N = 1024), ``run_all``
+cluster's launch configuration; the dense scans likewise, with the grid
+of their cooperative launch), ``main_path`` (N = 1024), ``run_all``
 (N = 2048), ``run_all_n4096``, ``cpu_vs_card``; then the ``{"kernels": [...]}`` line,
 the card's name and power limit as ``nvidia-smi`` gives them, and the result
 line. The launch counts are set to 0 just before each path and read just
 after it. Any phase that fails ends the run with a non-zero exit code. Needs
 a CUDA device and no network. ``--phases a,b`` runs a subset (the build always runs);
 ``--phases profile`` adds a ``torch.profiler`` breakdown of Paint and one
-section of BuildTopology at N = 1024 and of FindEquivalentBranches and
-InferBranchLengths at N = 2048, which the default run leaves out;
+section of BuildTopology at N = 1024 and of one section of BuildTopology,
+FindEquivalentBranches and InferBranchLengths at N = 2048, which the
+default run leaves out;
 ``--phases inc_edges`` holds only the incremental merge scan against its
-plain version at those edge sizes (a short check after an edit of it).
+plain version at those edge sizes (a short check after an edit of it);
+``--phases dense_edges`` does the same for the two dense merge scans (B5
+and B6) at N = 2 ... 1000, where most warps and blocks of their cooperative
+grid own no row, and with a negative threshold (the fallback at every step)
+at N = 1024 and N = 2048. The kernels phase runs those cases too.
 
 How the kernels are compared. The sweeps rescale a row whenever its sum
 leaves [1e-10, 1e10]; the kernel and the plain version add the row in
@@ -67,6 +73,8 @@ N_INC_ODD = 5008               # no multiple of 128 or of the block sizes
 N_INC_MAX = 16384              # the widest panel the port takes
 N_INC_EDGES = (2, 3, 9, 15, 100, 1000)   # blocks of B7's cluster left empty
                                          # or ragged
+N_DENSE_EDGES = (2, 3, 9, 33, 100, 1000)  # fewer rows than warps in B5's and
+                                          # B6's grid, or a ragged last block
 L_SNPS = 8192
 L_SNPS_INC = 4096              # of the N = 4096 panel
 SEED = 20240611
@@ -350,22 +358,66 @@ def first_difference(a, b):
     return int(ne[0]) if ne.numel() else -1
 
 
+def dense_against_plain(detail, n, label, d_, dcf_, ucf, thr, thr_cf, seed,
+                        large):
+    """B6 (``large``) or B5 against the plain version on one input: merge
+    lists equal exactly, and the clade rows (B5's own, or rebuilt from B6's
+    lists by ``clades_from_merges``) equal to the plain version's. Appends
+    the record to ``detail`` and returns the kernel's outputs."""
+    from relate_tpu_torch.ops import merge_scan as ms
+    name = "merge_scan_large" if large else "merge_scan"
+    args = (d_, dcf_, ucf, thr, thr_cf, seed)
+    k = ms.merge_scan_large(*args) if large else ms.merge_scan(*args)
+    p = ms.merge_scan_plain(*args)
+    torch.cuda.synchronize()
+    same = torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    detail.append({"N": n, "case": label, "use_cf": ucf, "threshold": thr,
+                   "equal": same})
+    if not same:
+        fail(f"{name}[N={n}, {label}]: merge lists differ from the plain "
+             f"version (first at step {first_difference(k[0], p[0])})")
+    clades = ms.clades_from_merges(k[0], k[1], n) if large else k[2]
+    if not torch.equal(clades, p[2]):
+        fail(f"{name}[N={n}, {label}]: the clade rows differ from the plain "
+             "version's")
+    return k
+
+
+def dense_edge_cases(large):
+    """B6 (``large``) or B5 at the edges of its cooperative grid: N = 2, 3,
+    9, 33 and 100 leave most warps and blocks without a row, N = 1000 a
+    ragged last block (continuous and tie-heavy values, the clade prior off
+    and on, and a negative threshold); and the negative threshold, where no
+    pair is ever mutual and every step takes the symmetric fallback, at the
+    kernel's own main-path width (N = 1024 for B5, 2048 for B6), timed.
+    Returns the records."""
+    from relate_tpu_torch.ops import merge_scan as ms
+    detail = []
+    for n in N_DENSE_EDGES:
+        for case in edge_cases(n):
+            dense_against_plain(detail, n, *case, large)
+    n = N_LARGE if large else N_HAP
+    label, d_, dcf_, ucf, thr, thr_cf, seed = random_cases(n)[3]
+    dense_against_plain(detail, n, label, d_, dcf_, ucf, thr, thr_cf, seed,
+                        large)
+    fn = ms.merge_scan_large if large else ms.merge_scan
+    detail[-1]["ms"] = time_ms(lambda: fn(d_, dcf_, ucf, thr, thr_cf, seed),
+                               3)
+    detail[-1]["us_per_step"] = detail[-1]["ms"] * 1e3 / (n - 1)
+    return detail
+
+
 def merge_scan_row(mat):
-    """B5, the merge scan that also emits the clade rows, at N = 1024."""
+    """B5, the merge scan that also emits the clade rows, at N = 1024, and
+    at the edges of its grid (``dense_edge_cases``)."""
     from relate_tpu_torch.ops import merge_scan as ms
     N = mat.shape[0]
     thr, thr_cf, cases = merge_cases(mat, ms.merge_scan)
-    worst, ms_k, ms_p, detail = 0.0, None, None, []
+    ms_k, ms_p = None, None
+    detail = dense_edge_cases(large=False)
     for label, d_, dcf_, ucf, seed in cases:
-        k = ms.merge_scan(d_, dcf_, ucf, thr, thr_cf, seed)
-        p = ms.merge_scan_plain(d_, dcf_, ucf, thr, thr_cf, seed)
-        torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in zip(k, p))
-        detail.append({"case": label, "use_cf": ucf, "equal": same})
-        if not same:
-            fail(f"merge_scan[{label}]: merge lists differ from the plain "
-                 f"version (first at step {first_difference(k[0], p[0])})")
-        worst = max(worst, float((k[2] - p[2]).abs().max().item()))
+        dense_against_plain(detail, N, label, d_, dcf_, ucf, thr, thr_cf,
+                            seed, large=False)
         if label == "posterior+clade_prior":
             fn_k = lambda: ms.merge_scan(d_, dcf_, ucf, thr, thr_cf, seed)  # noqa: E731
             fn_p = lambda: ms.merge_scan_plain(d_, dcf_, ucf, thr, thr_cf,  # noqa: E731
@@ -374,39 +426,29 @@ def merge_scan_row(mat):
     live_pairs = sum((N - t) * (N - t - 1) for t in range(N - 1))
     return make_row(
         "merge_scan", "relate_tpu_torch/csrc/merge_scan.cu",
-        "relate_tpu/ops/merge_scan.py:371", worst, 0, ms_k, ms_p,
+        "relate_tpu/ops/merge_scan.py:371", 0.0, 0, ms_k, ms_p,
         2 * N * N * 4 + (N - 1) * N * 4 + 2 * (N - 1) * 4,
         9 * live_pairs, shape=[N, N], cases=detail,
+        us_per_step=ms_k * 1e3 / (N - 1), grid=ms.grid_config(N, large=False),
         live_bytes_ms=live_pairs * 16 / HBM_BYTES_PER_S * 1e3)
 
 
 def merge_scan_large_row(mat_large, mat_small):
     """B6, the merge scan without clade state: against its plain version at
-    N = 2048 and at an N that is no multiple of 256 (merge lists equal
-    exactly), and against B5 at N = 1024 (merge lists equal, and
-    ``clades_from_merges`` of its lists equal to B5's clade rows). The
-    clades rebuilt from its lists are held against the plain version's at
-    every size."""
+    N = 2048, at an N that is no multiple of 256 and at the edges of its
+    grid (``dense_edge_cases``; merge lists equal exactly), and against B5
+    at N = 1024 (merge lists equal, and ``clades_from_merges`` of its lists
+    equal to B5's clade rows). The clades rebuilt from its lists are held
+    against the plain version's at every size."""
     from relate_tpu_torch.ops import merge_scan as ms
     N = mat_large.shape[0]
     if not ms.MAX_N_SMALL < N <= ms.MAX_N_LARGE:
         fail(f"merge_scan_large: N = {N} is not on the large route")
-    detail, ms_k, ms_p, ms_c = [], None, None, None
+    ms_k, ms_p, ms_c = None, None, None
+    detail = dense_edge_cases(large=True)
 
-    def against_plain(n, label, d_, dcf_, ucf, thr, thr_cf, seed):
-        k = ms.merge_scan_large(d_, dcf_, ucf, thr, thr_cf, seed)
-        p = ms.merge_scan_plain(d_, dcf_, ucf, thr, thr_cf, seed)
-        torch.cuda.synchronize()
-        same = torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
-        detail.append({"N": n, "case": label, "use_cf": ucf, "equal": same})
-        if not same:
-            fail(f"merge_scan_large[N={n}, {label}]: merge lists differ "
-                 "from the plain version (first at step "
-                 f"{first_difference(k[0], p[0])})")
-        if not torch.equal(ms.clades_from_merges(k[0], k[1], n), p[2]):
-            fail(f"merge_scan_large[N={n}, {label}]: the clades rebuilt from "
-                 "the merge lists differ from the plain version's")
-        return k
+    def against_plain(n, *case):
+        return dense_against_plain(detail, n, *case, large=True)
 
     thr, thr_cf, cases = merge_cases(mat_large, ms.merge_scan)
     for label, d_, dcf_, ucf, seed in cases[1:]:
@@ -455,7 +497,8 @@ def merge_scan_large_row(mat_large, mat_small):
         "merge_scan_large", "relate_tpu_torch/csrc/merge_scan.cu",
         "relate_tpu/ops/merge_scan.py:303", 0.0, 0, ms_k, ms_p,
         max(io_bytes, hbm_bytes), 9 * live_pairs, shape=[N, N], cases=detail,
-        clades_from_merges_ms=ms_c,
+        clades_from_merges_ms=ms_c, us_per_step=ms_k * 1e3 / (N - 1),
+        grid=ms.grid_config(N, large=True),
         steps_above_l2=sum((N - t) * (N - t) * 16 > L2_BYTES
                            for t in range(N - 1)),
         live_bytes_ms=live_pairs * 16 / HBM_BYTES_PER_S * 1e3,
@@ -727,6 +770,16 @@ def phase_inc_edges():
     detail = []
     inc_edge_cases(detail)
     emit("inc_edges", cases=detail, cluster=mi.cluster_config(N_INC))
+
+
+def phase_dense_edges():
+    """Only B5 and B6 at the edges of their grid against their plain
+    versions (``--phases dense_edges``, a short check of a new build)."""
+    from relate_tpu_torch.ops import merge_scan as ms
+    emit("dense_edges", merge_scan=dense_edge_cases(large=False),
+         merge_scan_large=dense_edge_cases(large=True),
+         grid={n: ms.grid_config(n, large=n > ms.MAX_N_SMALL)
+               for n in N_DENSE_EDGES + (N_HAP, N_ODD, N_LARGE)})
 
 
 def reset_counts():
@@ -1031,8 +1084,9 @@ def profiled(fn):
 
 def phase_profile(panels):
     """Optional (``--phases profile``): Paint and one section of
-    BuildTopology at N = 1024, and FindEquivalentBranches and
-    InferBranchLengths of the chunk at N = 2048, under ``torch.profiler``."""
+    BuildTopology at N = 1024, and one section of BuildTopology,
+    FindEquivalentBranches and InferBranchLengths of the chunk at N = 2048,
+    under ``torch.profiler``."""
     from relate_tpu_torch.io.chunking import ArtifactStore
     from relate_tpu_torch.pipeline import relate
     from relate_tpu_torch.utils import synth
@@ -1059,7 +1113,14 @@ def phase_profile(panels):
                                           first_section=1, last_section=1,
                                           device=DEV))
         relate.paint(large, 0, theta=THETA, device=DEV)
-        relate.build_topology(large, 0, seed=1, theta=THETA, device=DEV)
+        relate.build_topology(large, 0, seed=1, theta=THETA, first_section=0,
+                              last_section=0, device=DEV)
+        rows["BuildTopology[1][N=2048]"] = profiled(
+            lambda: relate.build_topology(large, 0, seed=1, theta=THETA,
+                                          first_section=1, last_section=1,
+                                          device=DEV))
+        relate.build_topology(large, 0, seed=1, theta=THETA, first_section=2,
+                              device=DEV)
         rows["FindEquivalentBranches[N=2048]"] = profiled(
             lambda: relate.find_equivalent_branches(large, 0, device=DEV))
         def infer():
@@ -1221,6 +1282,8 @@ def main():
     kernels = []
     if "inc_edges" in phases:
         phase_inc_edges()
+    if "dense_edges" in phases:
+        phase_dense_edges()
     if "kernels" in phases:
         kernels = phase_kernels(panels)
         torch.cuda.empty_cache()

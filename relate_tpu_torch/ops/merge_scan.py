@@ -1,4 +1,4 @@
-"""MinMatch merge scan: the dense CUDA kernels (N <= 2048), their plain
+"""MinMatch merge scan: the dense CUDA kernel (N <= 2048), its plain
 version, and the route to the incremental scan above that.
 
 Counterpart of ``relate_tpu/ops/merge_scan.py`` (behavioural reference
@@ -13,14 +13,27 @@ size-weighted merge of row j and then column j.
 Which TPU kernels this replaces: ``_kernel`` (``merge_scan.py:46``, N <=
 ``MAX_N_SMALL``: merge lists and clade rows) and ``_kernel_large``
 (``merge_scan.py:164``, ``MAX_N_SMALL`` < N <= ``MAX_N_LARGE``: merge lists
-only, the clade rows rebuilt outside by ``clades_from_merges``). What bounds
-them on the card: the latency of a chain of N-1 dependent steps, each of
-which reduces over the whole live matrix. The four N x N float32 matrices
-are 16 MB at N = 1024 and stay in the 50 MB L2 cache; at N = 2048 they are
-67 MB, so the early steps of the large route also pay for device-memory
-traffic. What the design does about it: ``csrc/merge_scan.cu`` enqueues
-three small launches per step from one C call, with the chosen pair kept on
-the card, so the host never waits inside the scan.
+only, the clade rows rebuilt outside by ``clades_from_merges``).
+
+Design (``csrc/merge_scan.cu``): one persistent kernel a scan, launched
+cooperatively on every block the card holds at once (``grid_config``), that
+loops over the steps itself. Each row has one owning warp for the whole
+scan. A step is two phases and two grid barriers: in the first, every block
+reduces the candidates of the last step to the same pair, blends its slice
+of row j, and the owner of every other live row blends that row's column-j
+entry and takes the row's minima; in the second, every owner tests its row's
+pairs and each block writes its best mutual and symmetric candidate. No
+phase runs on a single block. The entries of dead columns and of the
+diagonal are kept at INF, the value the plain version masks them with, so
+the passes over a row need no mask. What a block reads that another wrote
+in the same launch goes through L2. What bounds it: at N = 2048 the four
+N x N float32 matrices are 67 MB, more than the 50 MB L2, so the early steps
+stream the live rows from device memory; after that, and at N = 1024
+(16 MB), the latency of the two grid barriers, the reductions and the round
+trips to L2 along a row. The entries that the sequential merge updates
+twice (row j, then column j) lie in the dead row or column i or on the
+diagonal, which are masked from then on, so the owners can blend row j and
+column j at once and the lists stay those of ``merge_scan_plain``.
 
 Sizes above ``MAX_N_LARGE``, up to ``MAX_N_INC``, go to the incremental scan
 of ``merge_scan_inc.py`` (amortised O(N) work a step in place of O(N^2); its
@@ -181,34 +194,50 @@ def _check_inputs(d, dcf, max_n: int):
 def _fn(large: bool):
     lib = _build.load("merge_scan")
     fn = lib.merge_scan_large_launch if large else lib.merge_scan_launch
-    # d, dt, dcf, dcft, active, sizes, conv, [csets,] mv, mvcf, best, cis,
-    # cjs, [clades]
-    fn.argtypes = ([ctypes.c_void_p] * (12 if large else 14)
+    # d, dt, dcf, dcft, [csets,] mv, mvcf, best, cis, cjs, [clades]
+    fn.argtypes = ([ctypes.c_void_p] * (9 if large else 11)
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                       ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
+def grid_config(N: int, large: bool, device=None) -> dict:
+    """The scan's launch configuration at width N on the card: blocks,
+    blocks a SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), threads
+    a block, dynamic shared bytes a block and SMs. Raises if not one block
+    fits."""
+    fn = _build.load("merge_scan").merge_scan_grid
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 5)()
+    with torch.cuda.device(device if device is not None else "cuda"):
+        err = fn(int(N), 0 if large else 1, info)
+    _build.check(err, "merge_scan (grid configuration)")
+    return dict(blocks=info[0], blocks_per_sm=info[1],
+                threads_per_block=info[2], dynamic_shared_bytes=info[3],
+                sms=info[4])
+
+
 def _launch(d, dcf, use_cf, threshold, threshold_cf, seed, large: bool):
-    """Enqueue one scan on the card of ``d``: the kernel with the clade rows
-    (returns cis, cjs, clades) or, with ``large``, the one without (returns
-    cis, cjs)."""
+    """Enqueue one scan on the card of ``d`` (one cooperative launch): the
+    kernel with the clade rows (returns cis, cjs, clades) or, with
+    ``large``, the one without (returns cis, cjs). Raises if the card cannot
+    hold the grid."""
     N = d.shape[0]
     dev = d.device
     # working copies, updated in place by the kernel; the transposes make
     # every "column" read of a step contiguous
     dw, dtw = d.clone(), d.t().contiguous()
     cw, ctw = dcf.clone(), dcf.t().contiguous()
-    active = torch.ones(N, dtype=torch.int32, device=dev)
-    sizes = torch.ones(N, dtype=torch.float32, device=dev)
-    conv = torch.arange(N, dtype=torch.int32, device=dev)
+    # scratch: the row minima; two slots of 16-byte candidates a block
+    # (blocks <= N), the grid barrier's counter and row j's minima
     mv = torch.empty(N, dtype=torch.float32, device=dev)
     mvcf = torch.empty(N, dtype=torch.float32, device=dev)
-    best = torch.empty(2 * N * 3, dtype=torch.int32, device=dev)
+    best = torch.empty(8 * N + 8, dtype=torch.int32, device=dev)
     cis = torch.empty(N - 1, dtype=torch.int32, device=dev)
     cjs = torch.empty(N - 1, dtype=torch.int32, device=dev)
-    state = [dw, dtw, cw, ctw, active, sizes, conv]
+    state = [dw, dtw, cw, ctw]
     outs = [mv, mvcf, best, cis, cjs]
     if not large:
         state.append(torch.eye(N, dtype=torch.float32, device=dev))

@@ -28,10 +28,13 @@ def _matrices(kind, N, seed):
     return d, dcf
 
 
-@pytest.mark.parametrize("threshold", [1e-6, 5.0])
+# N = 2, 3 and 9 leave most warps and blocks of the card's grid without a
+# row; a negative threshold makes no pair mutual, so every step falls back
+# to the symmetric argmin
+@pytest.mark.parametrize("threshold", [-1.0, 1e-6, 5.0])
 @pytest.mark.parametrize("use_cf", [False, True])
 @pytest.mark.parametrize("kind", ["real", "ties"])
-@pytest.mark.parametrize("N", [33, 40, 48])
+@pytest.mark.parametrize("N", [2, 3, 9, 33, 40, 48])
 def test_merge_scan_plain_matches_pallas(N, kind, use_cf, threshold):
     d, dcf = _matrices(kind, N, seed=N)
     seed = 12345 + N
@@ -48,10 +51,10 @@ def test_merge_scan_plain_matches_pallas(N, kind, use_cf, threshold):
     assert tms.launches["merge_scan"] == 0     # CPU tensors: plain version
 
 
-@pytest.mark.parametrize("threshold", [1e-6, 5.0])
+@pytest.mark.parametrize("threshold", [-1.0, 1e-6, 5.0])
 @pytest.mark.parametrize("use_cf", [False, True])
 @pytest.mark.parametrize("kind", ["real", "ties"])
-@pytest.mark.parametrize("N", [33, 40, 48])
+@pytest.mark.parametrize("N", [2, 3, 9, 33, 40, 48])
 def test_large_plain_matches_large_pallas(N, kind, use_cf, threshold,
                                           monkeypatch):
     """The plain version of the large kernel (merge lists only) against
