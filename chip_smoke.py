@@ -36,7 +36,12 @@ plain version at those edge sizes (a short check after an edit of it);
 ``--phases dense_edges`` does the same for the two dense merge scans (B5
 and B6) at N = 2 ... 1000, where most warps and blocks of their cooperative
 grid own no row, and with a negative threshold (the fallback at every step)
-at N = 1024 and N = 2048. The kernels phase runs those cases too.
+at N = 1024 and N = 2048; ``--phases sweep_edges`` for the two capture
+sweeps (B3 and B4) on seeded synthetic inputs at N = 2, 3, 100, 1000 and
+5000 (rows that start off a 16-byte boundary), at N = 16384 and 25827 (the
+widest, on few targets), with wanted rows -1, 0, D-1, D, Dmax and beyond,
+targets with D = 2, and rows that rescale every other or every step. The kernels
+phase runs those cases too.
 
 How the kernels are compared. The sweeps rescale a row whenever its sum
 leaves [1e-10, 1e10]; the kernel and the plain version add the row in
@@ -54,6 +59,7 @@ incremental scan's counts of repairs and fallback steps as well.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -75,6 +81,10 @@ N_INC_EDGES = (2, 3, 9, 15, 100, 1000)   # blocks of B7's cluster left empty
                                          # or ragged
 N_DENSE_EDGES = (2, 3, 9, 33, 100, 1000)  # fewer rows than warps in B5's and
                                           # B6's grid, or a ragged last block
+N_SWEEP_EDGES = (2, 3, 100, 1000, 5000)   # fewer sources than a warp's, rows
+                                          # off a 16-byte boundary
+N_SWEEP_WIDE = (16384, 25827)  # the capture sweeps' widest blocks, and the
+                               # largest width the wrappers take
 L_SNPS = 8192
 L_SNPS_INC = 4096              # of the N = 4096 panel
 SEED = 20240611
@@ -195,6 +205,14 @@ def make_row(name, source, replaces, err, direct, ms_k, ms_p, nbytes, ops,
         bytes=int(nbytes), operations=int(ops), **extra)
 
 
+def chain(ms, walked, launch):
+    """A capture sweep's chain: the most rows a target walks, the time a row
+    of that chain takes, and the launch configuration."""
+    rows = int(walked.max().item())
+    return dict(rows_max=rows, us_per_row=ms * 1e3 / max(rows, 1),
+                ring_rows=launch["ring_rows"], launch=launch)
+
+
 def sweep_rows(G, bp, memory_gb, w):
     """The four sweep kernels against their plain versions on the card, at
     the shapes that window ``w`` of the panel's plan gives them (a middle
@@ -282,7 +300,7 @@ def sweep_rows(G, bp, memory_gb, w):
         del to_k, lt_k
     del al_k, ls_k
 
-    # B3 / B4 capture variants
+    # B3 / B4 capture sweeps
     ck = lambda: pk.fwd_capture(D, want_f, a0, kmask, mism, pfac, nxt,  # noqa: E731
                                 theta=THETA)
     cp_ = lambda: pk.fwd_capture_plain(D, want_f, a0, kmask, mism, pfac,  # noqa: E731
@@ -291,13 +309,15 @@ def sweep_rows(G, bp, memory_gb, w):
     torch.cuda.synchronize()
     err, direct = compare_rows("paint_fwd_capture", ac_k, lc_k, ac_p, lc_p,
                                all_b)
-    rows_f = int(torch.minimum(want_f.long(), Dl - 1).sum().item())
+    walked = torch.minimum(want_f.long(), Dl - 1)   # rows after row 0
+    rows_f = int(walked.sum().item())
+    ms_k = time_ms(ck, 3)
     res.append(make_row(
-        "paint_fwd_capture", "relate_tpu_torch/csrc/paint_fwd.cu",
+        "paint_fwd_capture", "relate_tpu_torch/csrc/paint_capture.cu",
         "relate_tpu/ops/paint_kernels.py:394", err, direct,
-        time_ms(ck, 3), time_ms(cp_, 1),
+        ms_k, time_ms(cp_, 1),
         rows_f * N + 3 * B * N * 4 + 2 * B * Dmax * 4, 6 * rows_f * N,
-        shape=shape))
+        shape=shape, **chain(ms_k, walked, pk.capture_config(N, B, False))))
 
     ck = lambda: pk.bwd_capture(D, want_b, be, kmask, mism, pfac, nxt,  # noqa: E731
                                 theta=THETA)
@@ -310,13 +330,15 @@ def sweep_rows(G, bp, memory_gb, w):
                                hit)
     if bool((bc_k * ~hit[:, None]).any()):
         fail("paint_bwd_capture: a target with no wanted row is not zero")
-    rows_b = int(((Dl - want_b.long()) * hit).sum().item())
+    walked = (Dl - want_b.long()) * hit
+    rows_b = int(walked.sum().item())
+    ms_k = time_ms(ck, 3)
     res.append(make_row(
-        "paint_bwd_capture", "relate_tpu_torch/csrc/paint_bwd.cu",
+        "paint_bwd_capture", "relate_tpu_torch/csrc/paint_capture.cu",
         "relate_tpu/ops/paint_kernels.py:515", err, direct,
-        time_ms(ck, 3), time_ms(cp_, 1),
+        ms_k, time_ms(cp_, 1),
         rows_b * N + 3 * B * N * 4 + 2 * B * Dmax * 4, 8 * rows_b * N,
-        shape=shape))
+        shape=shape, **chain(ms_k, walked, pk.capture_config(N, B, True))))
     del ac_k, ac_p, bc_k, bc_p
 
     # a distance matrix assembled from the posterior above
@@ -732,8 +754,122 @@ def merge_scan_inc_row(mat_inc, mat_large):
             "fallback_steps", "fallback_entries", "plain_ms", "bound_ms")})
 
 
+def capture_inputs(N, B, Dmax, seed, pfac_scale=0.01, density=0.3,
+                   d_max=None):
+    """Seeded synthetic inputs of the capture sweeps on the card: D in
+    [2, d_max] (D[0] = 2, D[1] = d_max), and the wanted rows cycling over
+    -1, 0, D-1, D (held by the forward sweep, none for the backward), Dmax
+    (none for either) and a row drawn below D. (D, want, state, kmask,
+    mism, pfac, nxt)."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    d_max = Dmax if d_max is None else d_max
+    D = torch.randint(2, d_max + 1, (B,), generator=gen, dtype=torch.int32)
+    D[0] = 2
+    D[1 % B] = d_max
+    drawn = (torch.rand(B, generator=gen) * D).to(torch.int32)
+    kinds = torch.arange(B) % 6
+    want = torch.where(kinds == 0, -1, torch.where(
+        kinds == 1, 0, torch.where(kinds == 2, D - 1, torch.where(
+            kinds == 3, D, torch.where(kinds == 4, Dmax, drawn))))).to(
+        torch.int32)
+    state = torch.rand((B, N), generator=gen) + 0.1
+    kmask = torch.ones((B, N))
+    kmask[torch.arange(B), torch.arange(B) % N] = 0.0
+    mism = (torch.rand((Dmax, B, N), generator=gen) < density).to(torch.int8)
+    pfac = (torch.rand((B, Dmax), generator=gen) + 0.5) * pfac_scale
+    nxt = -torch.rand((B, Dmax), generator=gen)
+    return tuple(t.contiguous().to(DEV) for t in
+                 (D, want, state, kmask, mism, pfac, nxt))
+
+
+def rescaled_share(D, nxt, lss, backward):
+    """Share of the stepped rows that the plain full sweep rescaled: those
+    whose logscale moved by more than its step term (a rescale moves it by
+    the log of a sum outside [1e-10, 1e10], at least 23)."""
+    Dmax = lss.shape[0]
+    j = torch.arange(1, Dmax, device=D.device)[:, None]
+    stepped = j < D[None, :]
+    if backward:   # row j - 1 steps from row j with nxt[j]
+        step = lss[:-1] - lss[1:] - nxt.t()[1:]
+    else:          # row j steps from row j - 1 with nxt[j - 1]
+        step = lss[1:] - lss[:-1] - nxt.t()[:-1]
+    moved = (step.abs() > 1.0) & stepped
+    return moved.sum().item() / max(stepped.sum().item(), 1)
+
+
+def capture_against_plain(detail, label, theta, inputs):
+    """B3 and B4 against their plain versions on one input: the scale-free
+    row comparison on the targets with a wanted row, exact zeros on the
+    others. Appends one record a direction to ``detail``."""
+    from relate_tpu_torch.ops import paint_kernels as pk
+    D, want, state, kmask, mism, pfac, nxt = inputs
+    Dmax, B, N = mism.shape
+    Dl, wl = D.long(), want.long()
+    for backward in (False, True):
+        name = "paint_bwd_capture" if backward else "paint_fwd_capture"
+        k_fn = pk.bwd_capture if backward else pk.fwd_capture
+        p_fn = pk.bwd_capture_plain if backward else pk.fwd_capture_plain
+        out_k, ls_k = k_fn(D, want, state, kmask, mism, pfac, nxt,
+                           theta=theta)
+        out_p, ls_p = p_fn(D, want, state, kmask, mism, pfac, nxt,
+                           theta=theta)
+        torch.cuda.synchronize()
+        hit = (wl >= 0) & (wl < Dmax)
+        if backward:
+            hit &= wl < Dl
+        what = f"{name}[N={N}, {label}]"
+        err, direct = compare_rows(what, out_k, ls_k, out_p, ls_p, hit)
+        if bool((out_k * ~hit[:, None]).any()) or bool((ls_k * ~hit).any()):
+            fail(f"{what}: a target with no wanted row is not zero")
+        if backward:
+            full = pk.bwd_plain(D, state, kmask, mism, pfac, nxt,
+                                torch.zeros((Dmax, B, N), device=DEV),
+                                torch.zeros((Dmax, B), device=DEV),
+                                theta=theta, emit_beta=True)[1]
+        else:
+            full = pk.fwd_plain(D, state, kmask, mism, pfac, nxt,
+                                theta=theta)[1]
+        detail.append({"N": N, "B": B, "Dmax": Dmax, "case": label,
+                       "kernel": name, "targets_with_row": int(hit.sum()),
+                       "max_abs_err": err, "rows_rescaled_elsewhere": direct,
+                       "rescaled_row_share": rescaled_share(D, nxt, full,
+                                                            backward),
+                       "launch": pk.capture_config(N, B, backward)})
+
+
+def capture_edge_cases():
+    """B3 and B4 at the edges of their blocks and rings: N = 2, 3, 100,
+    1000 and 5000 (fewer sources than a warp's, and rows that start off a
+    16-byte boundary), the wanted rows -1, 0, D-1, D, Dmax and drawn ones,
+    all targets at D = 2, rows that rescale at every other step (theta
+    0.999999: a mismatch multiplies a source by 1e6) and at every step (pfac
+    1e11); and N = 16384 and
+    N = 25827, the widest blocks, on 4 targets. Returns the records."""
+    detail = []
+    for i, n in enumerate(N_SWEEP_EDGES):
+        capture_against_plain(detail, "mixed", THETA,
+                              capture_inputs(n, 24, 40, SEED + i))
+    for n in (100, 1000):
+        capture_against_plain(
+            detail, "theta 0.999999: a rescale every other step", 0.999999,
+            capture_inputs(n, 24, 40, SEED + n, density=0.95))
+        capture_against_plain(
+            detail, "pfac 1e11: a rescale every step", THETA,
+            capture_inputs(n, 24, 40, SEED + 2 * n, pfac_scale=1e11))
+    capture_against_plain(detail, "D = 2 for all targets", THETA,
+                          capture_inputs(1000, 24, 6, SEED + 7, d_max=2))
+    for i, n in enumerate(N_SWEEP_WIDE):
+        capture_against_plain(detail, "mixed", THETA,
+                              capture_inputs(n, 4, 48, SEED + 11 + i))
+    capture_against_plain(
+        detail, "pfac 1e11: a rescale every step", THETA,
+        capture_inputs(N_SWEEP_WIDE[-1], 4, 48, SEED + 13, pfac_scale=1e11))
+    return detail
+
+
 AT_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-           "rows_rescaled_elsewhere")
+           "rows_rescaled_elsewhere", "rows_max", "us_per_row", "ring_rows",
+           "launch")
 
 
 def phase_kernels(panels):
@@ -745,15 +881,19 @@ def phase_kernels(panels):
     scan holds those at N = 2048, the incremental scan's those at
     N = 4096."""
     res, mat_small = sweep_rows(*panels[N_HAP], w=1)
+    edges = capture_edge_cases()
+    for row in res:
+        if row["name"].endswith("_capture"):
+            row["cases"] = [c for c in edges if c["kernel"] == row["name"]]
     res.append(merge_scan_row(mat_small))
     torch.cuda.empty_cache()
     wide, mat_large = sweep_rows(*panels[N_LARGE], w=1)
     for row, at in zip(res, wide):
-        row["at_n2048"] = {k: at[k] for k in AT_KEYS}
+        row["at_n2048"] = {k: at[k] for k in AT_KEYS if k in at}
     torch.cuda.empty_cache()
     wide, mat_inc = sweep_rows(*panels[N_INC], w=1)
     for row, at in zip(res, wide):
-        row["at_n4096"] = {k: at[k] for k in AT_KEYS}
+        row["at_n4096"] = {k: at[k] for k in AT_KEYS if k in at}
     torch.cuda.empty_cache()
     res.append(merge_scan_large_row(mat_large, mat_small))
     res.append(merge_scan_inc_row(mat_inc, mat_large))
@@ -780,6 +920,15 @@ def phase_dense_edges():
          merge_scan_large=dense_edge_cases(large=True),
          grid={n: ms.grid_config(n, large=n > ms.MAX_N_SMALL)
                for n in N_DENSE_EDGES + (N_HAP, N_ODD, N_LARGE)})
+
+
+def phase_sweep_edges():
+    """Only B3 and B4 at the edges of their blocks and rings against their
+    plain versions (``--phases sweep_edges``, a short check of a new
+    build)."""
+    emit("sweep_edges", cases=capture_edge_cases(),
+         tolerance="rows/sum rtol 1e-5, logscale+log(sum) atol 2e-3; "
+                   "targets with no wanted row exactly zero")
 
 
 def reset_counts():
@@ -1052,9 +1201,11 @@ def phase_run_all(G, bp, memory_gb, kernels, phase, scan):
              f"builds and {len(anc.seq)} trees")
 
 
-def profiled(fn):
+def profiled(fn, named=()):
     """Run ``fn`` under ``torch.profiler``: wall seconds, the device's busy
-    seconds and share, and the kernels that take most of the device time."""
+    seconds and share, the kernels that take most of the device time, and
+    the device ms and calls of the kernels whose names hold one of the
+    strings ``named``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1075,18 +1226,81 @@ def profiled(fn):
            and not e.key.endswith("Loading")]
     busy = sum(dev_us(e) for e in evs) / 1e6
     top = sorted(evs, key=dev_us, reverse=True)[:8]
-    return dict(
+    out = dict(
         wall_s_profiled=round(wall, 3), device_busy_s=round(busy, 4),
         device_busy_share=round(busy / wall, 4),
         device_kernels=int(sum(e.count for e in evs)),
         top=[[e.key[:60], round(dev_us(e) / 1e3, 3), e.count] for e in top])
+    if named:
+        out["named"] = [[e.key[:60], round(dev_us(e) / 1e3, 3), e.count]
+                        for e in evs if any(n in e.key for n in named)]
+    return out
+
+
+@contextlib.contextmanager
+def host_timers(targets):
+    """While active, every call of each ``(owner, attribute)`` in ``targets``
+    is counted and timed on the host clock, ended by a device
+    synchronisation. Yields {"Owner.attribute": [seconds, calls]}; calls
+    made inside another timed call count in both."""
+    acc, saved = {}, []
+    for owner, attr in targets:
+        fn = getattr(owner, attr)
+        rec = acc.setdefault(f"{owner.__name__}.{attr}", [0.0, 0])
+
+        def timed(*a, _fn=fn, _rec=rec, **k):
+            t0 = time.time()
+            try:
+                return _fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                _rec[0] += time.time() - t0
+                _rec[1] += 1
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, timed)
+    try:
+        yield acc
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def paint_split(store):
+    """Paint of one chunk (``relate.paint``) on the host clock, with the
+    time of the stepping-stone sweeps (``Painter.paint_stepping_stones`` and
+    the planner calls inside it) and of the checkpoint writes
+    (``np.savez_compressed``); then the same call under ``torch.profiler``
+    for the device time of the capture sweeps."""
+    from relate_tpu_torch.core import painting
+    from relate_tpu_torch.pipeline import relate
+    P = painting.Painter
+    with host_timers([(P, "paint_stepping_stones"),
+                      (P, "window_boundary_sites"), (P, "_prep"),
+                      (P, "_rows_of_sites"), (P, "_extended_final_raw"),
+                      (np, "savez_compressed")]) as acc:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        relate.paint(store, 0, theta=THETA, device=DEV)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    timers = {k: {"s": round(v[0], 3), "calls": v[1]} for k, v in acc.items()}
+    stones = acc["Painter.paint_stepping_stones"][0]
+    writes = acc["numpy.savez_compressed"][0]
+    prof = profiled(lambda: relate.paint(store, 0, theta=THETA, device=DEV),
+                    named=("capture_kernel",))
+    return dict(wall_s=round(wall, 3), host_timers=timers,
+                stepping_stones_share=round(stones / wall, 4),
+                checkpoint_writes_share=round(writes / wall, 4),
+                rest_s=round(wall - stones - writes, 3), profiled=prof)
 
 
 def phase_profile(panels):
     """Optional (``--phases profile``): Paint and one section of
     BuildTopology at N = 1024, and one section of BuildTopology,
     FindEquivalentBranches and InferBranchLengths of the chunk at N = 2048,
-    under ``torch.profiler``."""
+    under ``torch.profiler``; and Paint at N = 4096 split on the host clock
+    into the stepping-stone sweeps and the checkpoint writes, with the
+    capture sweeps' device time (``paint_split``)."""
     from relate_tpu_torch.io.chunking import ArtifactStore
     from relate_tpu_torch.pipeline import relate
     from relate_tpu_torch.utils import synth
@@ -1095,7 +1309,7 @@ def phase_profile(panels):
     rows = {}
     with tempfile.TemporaryDirectory(prefix="relate_smoke_") as tmp:
         stores = {}
-        for N in (N_HAP, N_LARGE):
+        for N in (N_HAP, N_LARGE, N_INC):
             G, bp, memory_gb = panels[N]
             prefix = os.path.join(tmp, f"panel{N}")
             synth.write_haps_sample(G, bp, prefix)
@@ -1128,6 +1342,7 @@ def phase_profile(panels):
                 relate.infer_branch_lengths(large, 0, seed=1, device=DEV)
         rows["InferBranchLengths[N=2048]"] = profiled(infer)
         rows["InferBranchLengths[N=2048]"]["mcmc"] = STAGES[-1]["mcmc"]
+        rows["Paint[N=4096]"] = paint_split(stores[N_INC])
     emit("profile", note="wall time includes the profiler's overhead; "
          "top = [kernel, device ms, calls]", **rows)
 
@@ -1284,6 +1499,8 @@ def main():
         phase_inc_edges()
     if "dense_edges" in phases:
         phase_dense_edges()
+    if "sweep_edges" in phases:
+        phase_sweep_edges()
     if "kernels" in phases:
         kernels = phase_kernels(panels)
         torch.cuda.empty_cache()

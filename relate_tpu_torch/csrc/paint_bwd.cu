@@ -1,15 +1,15 @@
-// Backward Li & Stephens sweep for sm_90a: posterior, beta and capture modes.
+// Backward Li & Stephens sweep for sm_90a: posterior and beta modes (the
+// capture sweep is in paint_capture.cu).
 //
-// Replaces the TPU kernels relate_tpu/ops/paint_kernels.py:_bwd_kernel (with
-// and without emit_beta) and _bwd_capture_kernel. One thread block per target
+// Replaces the TPU kernel relate_tpu/ops/paint_kernels.py:_bwd_kernel (with
+// and without emit_beta). One thread block per target
 // haplotype b walks the rows j = Dmax-1..0; its threads cover the N sources
 // (contiguous: state is (B, N), streams are (Dmax, B, N)). The beta row and
 // the previous row's mismatch bytes stay in shared memory, so each mismatch
 // byte is read from device memory once.
 //
 // Bound: memory. Per cell the posterior mode reads 1 byte of mismatch and
-// 4 bytes of alpha and writes 4 bytes; the beta mode reads 1 and writes 4;
-// the capture mode reads 1 byte between rows D[b]-1 and want[b] only.
+// 4 bytes of alpha and writes 4 bytes; the beta mode reads 1 and writes 4.
 //
 // Recurrence, identical to the plain version in ops/paint_kernels.py:
 //   j >= D[b]:    inactive, the outputs of that row are zero
@@ -22,7 +22,6 @@
 //                 then the rescale; pls += nxt[b, j+1] + log (Kahan)
 //   outputs: MODE_POST  alpha*beta and lsf[j] + pls
 //            MODE_BETA  post-rescale beta and pls
-//            MODE_CAP   post-rescale beta and pls at row want[b] only
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,7 +31,7 @@ namespace {
 constexpr int THREADS = 256;
 constexpr float LOWER_RESCALE = 1e-10f;
 constexpr float UPPER_RESCALE = 1e10f;
-constexpr int MODE_POST = 0, MODE_BETA = 1, MODE_CAP = 2;
+constexpr int MODE_POST = 0, MODE_BETA = 1;
 
 __device__ __forceinline__ float block_sum(float v, float* red) {
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -46,8 +45,7 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 
 template <int MODE>
 __global__ void __launch_bounds__(THREADS)
-paint_bwd_kernel(const int* __restrict__ D, const int* __restrict__ want,
-                 const float* __restrict__ beta_end,
+paint_bwd_kernel(const int* __restrict__ D, const float* __restrict__ beta_end,
                  const float* __restrict__ kmask,
                  const int8_t* __restrict__ mism,
                  const float* __restrict__ pfac, const float* __restrict__ nxt,
@@ -70,27 +68,15 @@ paint_bwd_kernel(const int* __restrict__ D, const int* __restrict__ want,
 
     for (int n = tid; n < N; n += THREADS) km[n] = kmask[bn + n];
 
-    int jstop = 0;
-    if (MODE == MODE_CAP) {
-        const int w = want[b];
-        const bool hit = (w >= 0) && (w < Db) && (w < Dmax);
-        if (!hit) {
-            for (int n = tid; n < N; n += THREADS) out[bn + n] = 0.f;
-            if (tid == 0) lsout[b] = 0.f;
-            return;
-        }
-        jstop = w;
-    } else {
-        // rows at and past D[b] carry nothing
-        for (int j = Dmax - 1; j >= Db; --j) {
-            float* orow = out + (size_t)j * row_stride + bn;
-            for (int n = tid; n < N; n += THREADS) orow[n] = 0.f;
-            if (tid == 0) lsout[(size_t)j * B + b] = 0.f;
-        }
+    // rows at and past D[b] carry nothing
+    for (int j = Dmax - 1; j >= Db; --j) {
+        float* orow = out + (size_t)j * row_stride + bn;
+        for (int n = tid; n < N; n += THREADS) orow[n] = 0.f;
+        if (tid == 0) lsout[(size_t)j * B + b] = 0.f;
     }
 
     float pls = 0.f, comp = 0.f, bsum_eff = 1.0f;
-    for (int j = min(Db, Dmax) - 1; j >= jstop; --j) {
+    for (int j = min(Db, Dmax) - 1; j >= 0; --j) {
         const bool is_init = (j == Db - 1);
         const int8_t* mrow = mism + (size_t)j * row_stride + bn;
         float lsf_j = 0.f;
@@ -140,24 +126,19 @@ paint_bwd_kernel(const int* __restrict__ D, const int* __restrict__ want,
 
         if (MODE == MODE_POST) {
             if (tid == 0) lsout[(size_t)j * B + b] = lsf_j + pls;
-        } else if (MODE == MODE_BETA) {
+        } else {
             float* orow = out + (size_t)j * row_stride + bn;
             for (int n = tid; n < N; n += THREADS) orow[n] = beta[n];
             if (tid == 0) lsout[(size_t)j * B + b] = pls;
         }
     }
-
-    if (MODE == MODE_CAP) {
-        for (int n = tid; n < N; n += THREADS) out[bn + n] = beta[n];
-        if (tid == 0) lsout[b] = pls;
-    }
 }
 
 template <int MODE>
-int launch(const void* D, const void* want, const void* beta_end,
-           const void* kmask, const void* mism, const void* pfac,
-           const void* nxt, const void* alphas, const void* lsf, void* out,
-           void* lsout, int Dmax, int B, int N, float theta, float ntheta,
+int launch(const void* D, const void* beta_end, const void* kmask,
+           const void* mism, const void* pfac, const void* nxt,
+           const void* alphas, const void* lsf, void* out, void* lsout,
+           int Dmax, int B, int N, float theta, float ntheta,
            float theta_ratio, cudaStream_t st) {
     const size_t shmem = (size_t)2 * N * sizeof(float) + (size_t)((N + 3) / 4) * 4;
     // above the 48 KB default (N > 5461) the block's dynamic shared memory
@@ -167,33 +148,29 @@ int launch(const void* D, const void* want, const void* beta_end,
         (int)shmem);
     if (e != cudaSuccess) return (int)e;
     paint_bwd_kernel<MODE><<<B, THREADS, shmem, st>>>(
-        (const int*)D, (const int*)want, (const float*)beta_end,
-        (const float*)kmask, (const int8_t*)mism, (const float*)pfac,
-        (const float*)nxt, (const float*)alphas, (const float*)lsf,
-        (float*)out, (float*)lsout, Dmax, B, N, theta, ntheta, theta_ratio);
+        (const int*)D, (const float*)beta_end, (const float*)kmask,
+        (const int8_t*)mism, (const float*)pfac, (const float*)nxt,
+        (const float*)alphas, (const float*)lsf, (float*)out, (float*)lsout,
+        Dmax, B, N, theta, ntheta, theta_ratio);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int paint_bwd_launch(const void* D, const void* want,
-                                const void* beta_end, const void* kmask,
-                                const void* mism, const void* pfac,
-                                const void* nxt, const void* alphas,
-                                const void* lsf, void* out, void* lsout,
-                                int Dmax, int B, int N, float theta,
-                                float ntheta, float theta_ratio, int mode,
-                                void* stream) {
+// mode 0: posterior (alpha * beta, lsf + pls), mode 1: beta and pls.
+extern "C" int paint_bwd_launch(const void* D, const void* beta_end,
+                                const void* kmask, const void* mism,
+                                const void* pfac, const void* nxt,
+                                const void* alphas, const void* lsf, void* out,
+                                void* lsout, int Dmax, int B, int N,
+                                float theta, float ntheta, float theta_ratio,
+                                int mode, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     if (mode == MODE_POST)
-        return launch<MODE_POST>(D, want, beta_end, kmask, mism, pfac, nxt,
-                                 alphas, lsf, out, lsout, Dmax, B, N, theta,
-                                 ntheta, theta_ratio, st);
-    if (mode == MODE_BETA)
-        return launch<MODE_BETA>(D, want, beta_end, kmask, mism, pfac, nxt,
-                                 alphas, lsf, out, lsout, Dmax, B, N, theta,
-                                 ntheta, theta_ratio, st);
-    return launch<MODE_CAP>(D, want, beta_end, kmask, mism, pfac, nxt, alphas,
-                            lsf, out, lsout, Dmax, B, N, theta, ntheta,
-                            theta_ratio, st);
+        return launch<MODE_POST>(D, beta_end, kmask, mism, pfac, nxt, alphas,
+                                 lsf, out, lsout, Dmax, B, N, theta, ntheta,
+                                 theta_ratio, st);
+    return launch<MODE_BETA>(D, beta_end, kmask, mism, pfac, nxt, alphas, lsf,
+                             out, lsout, Dmax, B, N, theta, ntheta,
+                             theta_ratio, st);
 }

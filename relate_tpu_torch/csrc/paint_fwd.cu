@@ -1,16 +1,16 @@
-// Forward Li & Stephens sweep for sm_90a, full-output and capture variants.
+// Forward Li & Stephens sweep for sm_90a, full output (the capture sweep is
+// in paint_capture.cu).
 //
-// Replaces the TPU kernels relate_tpu/ops/paint_kernels.py:_fwd_kernel and
-// _fwd_capture_kernel. One thread block per target haplotype b: the targets
+// Replaces the TPU kernel relate_tpu/ops/paint_kernels.py:_fwd_kernel. One
+// thread block per target haplotype b: the targets
 // are independent chains, so nothing is shared between blocks. The block
 // walks the derived-site rows j = 0..Dmax-1 in order; its threads cover the
 // N copying sources (contiguous in memory: state is (B, N), streams are
 // (Dmax, B, N)). The alpha row lives in shared memory for the whole sweep
 // and every row needs one block-wide sum.
 //
-// Bound: memory. Per cell the full variant reads 1 byte of mismatch and
-// writes 4 bytes of alpha; the capture variant only reads the byte and stops
-// at the row it was asked for.
+// Bound: memory. Per cell it reads 1 byte of mismatch and writes 4 bytes of
+// alpha.
 //
 // Recurrence (float32, rescale into [1e-10, 1e10], Kahan-compensated
 // logscale), identical to the plain version in ops/paint_kernels.py:
@@ -41,15 +41,12 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
     return s;
 }
 
-template <bool CAPTURE>
 __global__ void __launch_bounds__(THREADS)
-paint_fwd_kernel(const int* __restrict__ D, const int* __restrict__ want,
-                 const float* __restrict__ alpha0,
+paint_fwd_kernel(const int* __restrict__ D, const float* __restrict__ alpha0,
                  const float* __restrict__ kmask,
                  const int8_t* __restrict__ mism,
                  const float* __restrict__ pfac, const float* __restrict__ nxt,
                  float* __restrict__ alphas, float* __restrict__ lss,
-                 float* __restrict__ acap, float* __restrict__ lscap,
                  int Dmax, int B, int N, float theta_ratio) {
     extern __shared__ float smem[];
     float* alpha = smem;            // N
@@ -73,19 +70,10 @@ paint_fwd_kernel(const int* __restrict__ D, const int* __restrict__ want,
     float asum_eff = block_sum(part, red[0]);   // row 0's parity
     float ls = 0.f, comp = 0.f;
 
-    int jend = Dmax;
-    if (CAPTURE) {
-        // rows past D[b] hold the state, and nothing after the wanted row
-        // is read: stop there
-        const int w = want[b];
-        jend = min(min(w + 1, Db), Dmax);
-        if (w < 0 || w >= Dmax) jend = 0;   // never hit: capture stays zero
-    } else {
-        for (int n = tid; n < N; n += THREADS) alphas[bn + n] = alpha[n];
-        if (tid == 0) lss[b] = 0.f;
-    }
+    for (int n = tid; n < N; n += THREADS) alphas[bn + n] = alpha[n];
+    if (tid == 0) lss[b] = 0.f;
 
-    for (int j = 1; j < jend; ++j) {
+    for (int j = 1; j < Dmax; ++j) {
         if (j < Db) {
             const float rx = asum_eff * pfac[(size_t)b * Dmax + j - 1];
             const float nx = nxt[(size_t)b * Dmax + j - 1];
@@ -112,55 +100,30 @@ paint_fwd_kernel(const int* __restrict__ D, const int* __restrict__ want,
             comp = (t - ls) - y;
             ls = t;
         }
-        if (!CAPTURE) {
-            float* orow = alphas + (size_t)j * row_stride + bn;
-            for (int n = tid; n < N; n += THREADS) orow[n] = alpha[n];
-            if (tid == 0) lss[(size_t)j * B + b] = ls;
-        }
-    }
-
-    if (CAPTURE) {
-        const int w = want[b];
-        const bool hit = (w >= 0) && (w < Dmax);
-        for (int n = tid; n < N; n += THREADS) acap[bn + n] = hit ? alpha[n] : 0.f;
-        if (tid == 0) lscap[b] = hit ? ls : 0.f;
+        float* orow = alphas + (size_t)j * row_stride + bn;
+        for (int n = tid; n < N; n += THREADS) orow[n] = alpha[n];
+        if (tid == 0) lss[(size_t)j * B + b] = ls;
     }
 }
 
 }  // namespace
 
-extern "C" int paint_fwd_launch(const void* D, const void* want,
-                                const void* alpha0, const void* kmask,
-                                const void* mism, const void* pfac,
-                                const void* nxt, void* alphas, void* lss,
-                                void* acap, void* lscap, int Dmax, int B,
-                                int N, float theta_ratio, int capture,
-                                void* stream) {
+extern "C" int paint_fwd_launch(const void* D, const void* alpha0,
+                                const void* kmask, const void* mism,
+                                const void* pfac, const void* nxt,
+                                void* alphas, void* lss, int Dmax, int B,
+                                int N, float theta_ratio, void* stream) {
     const size_t shmem = (size_t)2 * N * sizeof(float);
     cudaStream_t st = (cudaStream_t)stream;
     // above the 48 KB default (N > 6144) the block's dynamic shared memory
     // must be asked for; a refusal (N rows past 227 KB) is returned
-    cudaError_t e;
-    if (capture) {
-        e = cudaFuncSetAttribute(paint_fwd_kernel<true>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)shmem);
-        if (e != cudaSuccess) return (int)e;
-        paint_fwd_kernel<true><<<B, THREADS, shmem, st>>>(
-            (const int*)D, (const int*)want, (const float*)alpha0,
-            (const float*)kmask, (const int8_t*)mism, (const float*)pfac,
-            (const float*)nxt, nullptr, nullptr, (float*)acap, (float*)lscap,
-            Dmax, B, N, theta_ratio);
-    } else {
-        e = cudaFuncSetAttribute(paint_fwd_kernel<false>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)shmem);
-        if (e != cudaSuccess) return (int)e;
-        paint_fwd_kernel<false><<<B, THREADS, shmem, st>>>(
-            (const int*)D, nullptr, (const float*)alpha0,
-            (const float*)kmask, (const int8_t*)mism, (const float*)pfac,
-            (const float*)nxt, (float*)alphas, (float*)lss, nullptr, nullptr,
-            Dmax, B, N, theta_ratio);
-    }
+    const cudaError_t e = cudaFuncSetAttribute(
+        paint_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)shmem);
+    if (e != cudaSuccess) return (int)e;
+    paint_fwd_kernel<<<B, THREADS, shmem, st>>>(
+        (const int*)D, (const float*)alpha0, (const float*)kmask,
+        (const int8_t*)mism, (const float*)pfac, (const float*)nxt,
+        (float*)alphas, (float*)lss, Dmax, B, N, theta_ratio);
     return (int)cudaGetLastError();
 }

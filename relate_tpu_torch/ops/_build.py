@@ -34,7 +34,8 @@ EXTRA_FLAGS: Dict[str, List[str]] = {
     "merge_scan": ["-fmad=false"],
     "merge_scan_inc": ["-fmad=false"],
 }
-SOURCES = ("paint_fwd", "paint_bwd", "merge_scan", "merge_scan_inc")
+SOURCES = ("paint_fwd", "paint_bwd", "paint_capture", "merge_scan",
+           "merge_scan_inc")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -2,8 +2,9 @@
 
 Counterpart of ``relate_tpu/ops/paint_kernels.py``. The four TPU kernels
 (``fwd_pallas``, ``bwd_pallas``, ``fwd_capture_pallas``,
-``bwd_capture_pallas``) become two CUDA sources, ``csrc/paint_fwd.cu`` and
-``csrc/paint_bwd.cu``, one templated body per direction.
+``bwd_capture_pallas``) become three CUDA sources: ``csrc/paint_fwd.cu``
+and ``csrc/paint_bwd.cu`` for the full sweeps, ``csrc/paint_capture.cu``
+for the two capture sweeps.
 
 Layout. Sources are contiguous: per-target state is ``(B, N)`` and the
 per-row streams are ``(Dmax, B, N)``, which is also the public layout of
@@ -21,11 +22,13 @@ compare with a transpose). Per-target step vectors are ``(B, Dmax)``:
 - logscale outputs are ``(Dmax, B)`` float32.
 
 What bounds the kernels on the card: memory traffic (1 mismatch byte read
-and 4 to 8 bytes of float32 moved per cell, a handful of flops). The design
-gives every target its own thread block with the state row in shared memory,
-so each stream byte crosses device memory once; rows of one target are a
-dependent chain with one block-wide sum each, and the B blocks in flight
-hide that latency.
+and 4 to 8 bytes of float32 moved per cell, a handful of flops). Every
+target gets its own thread block, so each stream byte crosses device memory
+once; rows of one target are a dependent chain with one block-wide sum
+each. The full sweeps keep the state row in shared memory and rely on the B
+blocks in flight to hide the chain's latency; the capture sweeps, which
+move only the mismatch bytes, keep the state in registers and stream the
+rows ahead of the chain into shared memory (``csrc/paint_capture.cu``).
 
 A CUDA tensor goes to the kernel or raises; only a CPU tensor takes the
 plain version. ``launches`` counts kernel launches per wrapper.
@@ -43,14 +46,16 @@ from . import _build
 LOWER_RESCALE = 1e-10
 UPPER_RESCALE = 1e10
 
-# A block keeps its target's state row, the kmask row and (backward) one row
-# of mismatch bytes in shared memory: 9 N bytes, of the 232,448 a block of
-# this card can use.
+# A block of the full backward sweep keeps its target's state row, the kmask
+# row and one row of mismatch bytes in shared memory: 9 N bytes, of the
+# 232,448 a block of this card can use. The capture sweeps need less (the
+# state in registers; kmask and a ring of 2 to 8 rows in shared memory; they
+# run up to N = 26,624) and take the same limit.
 MAX_N = 232448 // 9
 
 launches = {"fwd": 0, "bwd": 0, "fwd_capture": 0, "bwd_capture": 0}
 
-_MODE_POST, _MODE_BETA, _MODE_CAP = 0, 1, 2
+_MODE_POST, _MODE_BETA = 0, 1
 
 
 def _theta_consts(theta: float) -> Tuple[float, float, float]:
@@ -97,10 +102,12 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 
 
-_FWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + \
-    [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + \
+_FWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + \
+    [ctypes.c_float, ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + \
     [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p]
+_CAPTURE_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 9 + \
+    [ctypes.c_int] * 3 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
 
 
 def _fwd_fn():
@@ -115,6 +122,33 @@ def _bwd_fn():
     fn.argtypes = _BWD_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+def _capture_fn():
+    fn = _build.load("paint_capture").paint_capture_launch
+    fn.argtypes = _CAPTURE_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def capture_config(N: int, B: int, backward: bool, device=None) -> dict:
+    """The launch configuration of a capture sweep (``backward``: B4, else
+    B3) at width N for B targets on the card: threads a block (one block a
+    target), sources a thread, ring slots and bytes a slot, dynamic shared
+    bytes, blocks a SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    SMs, waves of the grid, registers and spilled bytes a thread."""
+    fn = _build.load("paint_capture").paint_capture_config
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 9)()
+    with torch.cuda.device(device if device is not None else "cuda"):
+        err = fn(int(N), int(bool(backward)), info)
+    _build.check(err, "paint_capture (configuration)")
+    return dict(threads_per_block=info[0], sources_per_thread=info[1],
+                ring_rows=info[2], slot_bytes=info[3],
+                dynamic_shared_bytes=info[4], blocks_per_sm=info[5],
+                sms=info[6], waves=B / max(info[5] * info[6], 1),
+                registers=info[7], local_bytes=info[8])
 
 
 def _stream(dev):
@@ -276,10 +310,9 @@ def fwd(D, alpha0, kmask, mism, pfac, nxt, *, theta):
     lss = torch.empty((Dmax, B), dtype=torch.float32, device=dev)
     _, _, tr = _theta_consts(theta)
     with torch.cuda.device(dev):
-        err = _fwd_fn()(_ptr(D), _ptr(None), _ptr(alpha0), _ptr(kmask),
-                        _ptr(mism), _ptr(pfac), _ptr(nxt), _ptr(alphas),
-                        _ptr(lss), _ptr(None), _ptr(None), Dmax, B, N, tr, 0,
-                        _stream(dev))
+        err = _fwd_fn()(_ptr(D), _ptr(alpha0), _ptr(kmask), _ptr(mism),
+                        _ptr(pfac), _ptr(nxt), _ptr(alphas), _ptr(lss), Dmax,
+                        B, N, tr, _stream(dev))
     launches["fwd"] += 1
     _build.check(err, "paint_fwd")
     return alphas, lss
@@ -298,27 +331,23 @@ def fwd_capture(D, want, alpha0, kmask, mism, pfac, nxt, *, theta):
         raise ValueError(f"want is on {want.device}, mism on {dev}")
     acap = torch.empty((B, N), dtype=torch.float32, device=dev)
     lscap = torch.empty((B,), dtype=torch.float32, device=dev)
-    _, _, tr = _theta_consts(theta)
-    with torch.cuda.device(dev):
-        err = _fwd_fn()(_ptr(D), _ptr(want), _ptr(alpha0), _ptr(kmask),
-                        _ptr(mism), _ptr(pfac), _ptr(nxt), _ptr(None),
-                        _ptr(None), _ptr(acap), _ptr(lscap), Dmax, B, N, tr,
-                        1, _stream(dev))
+    err = _capture_launch(False, D, want, alpha0, kmask, mism, pfac, nxt,
+                          acap, lscap, theta)
     launches["fwd_capture"] += 1
-    _build.check(err, "paint_fwd (capture)")
+    _build.check(err, "paint_capture (forward)")
     return acap, lscap
 
 
-def _bwd_launch(mode, D, want, beta_end, kmask, mism, pfac, nxt, alphas, lsf,
-                out, lsout, theta):
+def _capture_launch(backward, D, want, state0, kmask, mism, pfac, nxt, out,
+                    lsout, theta):
     Dmax, B, N = mism.shape
     th, nth, tr = _theta_consts(theta)
     dev = mism.device
     with torch.cuda.device(dev):
-        return _bwd_fn()(_ptr(D), _ptr(want), _ptr(beta_end), _ptr(kmask),
-                         _ptr(mism), _ptr(pfac), _ptr(nxt), _ptr(alphas),
-                         _ptr(lsf), _ptr(out), _ptr(lsout), Dmax, B, N, th,
-                         nth, tr, mode, _stream(dev))
+        return _capture_fn()(int(backward), _ptr(D), _ptr(want),
+                             _ptr(state0), _ptr(kmask), _ptr(mism),
+                             _ptr(pfac), _ptr(nxt), _ptr(out), _ptr(lsout),
+                             Dmax, B, N, th, nth, tr, _stream(dev))
 
 
 def bwd(D, beta_end, kmask, mism, pfac, nxt, alphas, lsf, *, theta,
@@ -337,9 +366,13 @@ def bwd(D, beta_end, kmask, mism, pfac, nxt, alphas, lsf, *, theta,
         raise ValueError("alphas and lsf must be on the device of mism")
     out = torch.empty((Dmax, B, N), dtype=torch.float32, device=dev)
     lsout = torch.empty((Dmax, B), dtype=torch.float32, device=dev)
-    err = _bwd_launch(_MODE_BETA if emit_beta else _MODE_POST, D, None,
-                      beta_end, kmask, mism, pfac, nxt, alphas, lsf, out,
-                      lsout, theta)
+    th, nth, tr = _theta_consts(theta)
+    with torch.cuda.device(dev):
+        err = _bwd_fn()(_ptr(D), _ptr(beta_end), _ptr(kmask), _ptr(mism),
+                        _ptr(pfac), _ptr(nxt), _ptr(alphas), _ptr(lsf),
+                        _ptr(out), _ptr(lsout), Dmax, B, N, th, nth, tr,
+                        _MODE_BETA if emit_beta else _MODE_POST,
+                        _stream(dev))
     launches["bwd"] += 1
     _build.check(err, "paint_bwd")
     return out, lsout
@@ -359,8 +392,8 @@ def bwd_capture(D, want, beta_end, kmask, mism, pfac, nxt, *, theta):
         raise ValueError(f"want is on {want.device}, mism on {dev}")
     bcap = torch.empty((B, N), dtype=torch.float32, device=dev)
     lscap = torch.empty((B,), dtype=torch.float32, device=dev)
-    err = _bwd_launch(_MODE_CAP, D, want, beta_end, kmask, mism, pfac, nxt,
-                      None, None, bcap, lscap, theta)
+    err = _capture_launch(True, D, want, beta_end, kmask, mism, pfac, nxt,
+                          bcap, lscap, theta)
     launches["bwd_capture"] += 1
-    _build.check(err, "paint_bwd (capture)")
+    _build.check(err, "paint_capture (backward)")
     return bcap, lscap

@@ -116,45 +116,117 @@ def test_bwd_plain_matches_pallas(seed, N, L, emit_beta):
         assert topo_t[:plan.D[b], b].any()
 
 
-@pytest.mark.parametrize("seed,N,L", [(3, 8, 64), (7, 11, 80)])
-def test_capture_plain_matches_pallas(seed, N, L):
+def _capture_case(kind, seed, N, L):
+    """Inputs of the capture sweeps in the port's layout, as numpy arrays:
+    (D, want, mism (Dmax,B,N), pfac, nxt (B,Dmax), alpha0, beta_end, kmask
+    (B,N)). "plan" cases come from a panel's window plan; "synthetic" ones
+    draw every input, with N sources (as few as one) and B = 6 targets."""
+    if kind.startswith("synthetic"):
+        rng = np.random.default_rng(seed)
+        B, Dmax = 6, L
+        D = rng.integers(2, Dmax + 1, B).astype(np.int32)
+        D[0] = 2
+        mism = (rng.random((Dmax, B, N)) < 0.4).astype(np.int8)
+        pfac = ((rng.random((B, Dmax)) + 0.5) * 0.01).astype(np.float32)
+        nxt = (-rng.random((B, Dmax))).astype(np.float32)
+        alpha0 = (rng.random((B, N)) + 0.1).astype(np.float32)
+        beta_end = (rng.random((B, N)) + 0.5).astype(np.float32)
+        kmask = np.ones((B, N), np.float32)
+        if N > 1:
+            kmask[np.arange(B), np.arange(B) % N] = 0.0
+        # -1, 0, D-1, D (held forward, none backward), Dmax and beyond
+        want = np.array([-1, 0, D[2] - 1, D[3], Dmax, Dmax + 5], np.int32)
+        return D, want, mism, pfac, nxt, alpha0, beta_end, kmask
     G, plan, alpha0, beta_end, rng = _fixture(seed, N, L)
-    jin = _jax_inputs(G, plan, alpha0, beta_end)
-    D, mism, shifts, a0, be, kmask = jin
+    D = plan.D.astype(np.int32).copy()
+    Dmax = plan.idx.shape[1]
+    mism = (plan.seqk.T[:, :, None] > G[plan.idx.T]).astype(np.int8)
     want = rng.integers(0, plan.D).astype(np.int32)
     want[0] = 0
     want[1] = plan.D[1] - 1
-    want[2] = plan.idx.shape[1] - 1     # at or past D for short targets
-    want_p = np.zeros(BP, np.int32); want_p[:N] = want
+    want[2] = Dmax - 1                  # at or past D for short targets
+    if kind == "plan, want -1 and past Dmax":
+        want[3], want[4], want[5] = -1, Dmax, Dmax + 7
+    elif kind == "plan, D = 2":
+        D[1:4] = 2
+        want[1:4] = (0, 1, 5)           # row 0, row D - 1, and past D
+    return (D, want, np.ascontiguousarray(mism), plan.pfac, plan.nxt,
+            alpha0, beta_end, plan.kmask)
 
+
+def _jax_capture_inputs(D, want, mism, pfac, nxt, alpha0, beta_end, kmask):
+    """The same inputs in the JAX kernels' padded (Dmax, N, B) / (N, B)
+    layout, with the pre-shifted step vectors."""
+    Dmax, B, N = mism.shape
+    Dp = np.zeros(BP, np.int32); Dp[:B] = D
+    wp = np.zeros(BP, np.int32); wp[:B] = want
+    mp = np.zeros((Dmax, NP, BP), np.int8)
+    mp[:, :N, :B] = mism.transpose(0, 2, 1)
+    pfacT = np.zeros((Dmax, BP), np.float32); pfacT[:, :B] = pfac.T
+    nxtT = np.zeros((Dmax, BP), np.float32); nxtT[:, :B] = nxt.T
+    z = np.zeros((1, BP), np.float32)
+
+    def pad(x):
+        out = np.zeros((NP, BP), np.float32)
+        out[:N, :B] = x.T
+        return jnp.asarray(out)
+    j = jnp.asarray
+    return dict(D=j(Dp[None, :]), want=j(wp[None, :]), mism=j(mp),
+                a0=pad(alpha0), be=pad(beta_end), kmask=pad(kmask),
+                pfacm1=j(np.concatenate([z, pfacT[:-1]])),
+                nxtm1=j(np.concatenate([z, nxtT[:-1]])),
+                pfacp1=j(np.concatenate([pfacT[1:], z])),
+                nxtp1=j(np.concatenate([nxtT[1:], z])))
+
+
+@pytest.mark.parametrize("kind,seed,N,L", [
+    pytest.param("plan", 3, 8, 64, id="3-8-64"),
+    pytest.param("plan", 7, 11, 80, id="7-11-80"),
+    pytest.param("plan, want -1 and past Dmax", 13, 9, 70,
+                 id="want-1-and-past-dmax"),
+    pytest.param("plan, D = 2", 17, 10, 60, id="d2"),
+    pytest.param("plan", 19, 3, 40, id="plan-n3"),
+    pytest.param("synthetic", 23, 1, 12, id="synthetic-n1"),
+    pytest.param("synthetic", 29, 2, 16, id="synthetic-n2"),
+    pytest.param("synthetic", 31, 3, 9, id="synthetic-n3"),
+])
+def test_capture_plain_matches_pallas(kind, seed, N, L):
+    """The capture sweeps' plain versions against fwd_capture_pallas and
+    bwd_capture_pallas (interpret mode): panel plans, wanted rows -1, 0,
+    D-1, D, Dmax and beyond, targets with D = 2, and one to three sources.
+    Targets with no wanted row (forward: want < 0 or >= Dmax; backward:
+    also want >= D) are zero in both."""
+    D, want, mism, pfac, nxt, alpha0, beta_end, kmask = _capture_case(
+        kind, seed, N, L)
+    Dmax, B, _ = mism.shape
+    ji = _jax_capture_inputs(D, want, mism, pfac, nxt, alpha0, beta_end,
+                             kmask)
     acap_k, lsa_k = jk.fwd_capture_pallas(
-        jnp.asarray(D[None, :]), jnp.asarray(want_p[None, :]),
-        jnp.asarray(a0), jnp.asarray(kmask), jnp.asarray(mism),
-        jnp.asarray(shifts[0]), jnp.asarray(shifts[1]), theta=THETA,
-        interpret=True)
+        ji["D"], ji["want"], ji["a0"], ji["kmask"], ji["mism"],
+        ji["pfacm1"], ji["nxtm1"], theta=THETA, interpret=True)
     bcap_k, lsb_k = jk.bwd_capture_pallas(
-        jnp.asarray(D[None, :]), jnp.asarray(want_p[None, :]),
-        jnp.asarray(be), jnp.asarray(kmask), jnp.asarray(mism),
-        jnp.asarray(shifts[2]), jnp.asarray(shifts[3]), theta=THETA,
-        interpret=True)
+        ji["D"], ji["want"], ji["be"], ji["kmask"], ji["mism"],
+        ji["pfacp1"], ji["nxtp1"], theta=THETA, interpret=True)
 
-    ti = _torch_inputs(G, plan, alpha0, beta_end)
-    w = torch.from_numpy(want)
-    acap_t, lsa_t = tk.fwd_capture(ti["D"], w, ti["alpha0"], ti["kmask"],
-                                   ti["mism"], ti["pfac"], ti["nxt"],
-                                   theta=THETA)
-    bcap_t, lsb_t = tk.bwd_capture(ti["D"], w, ti["beta_end"], ti["kmask"],
-                                   ti["mism"], ti["pfac"], ti["nxt"],
-                                   theta=THETA)
-    np.testing.assert_allclose(acap_t.numpy(), np.asarray(acap_k)[:N, :N].T,
+    t = torch.from_numpy
+    args = (t(D), t(want))
+    rest = (t(kmask), t(mism), t(np.ascontiguousarray(pfac)),
+            t(np.ascontiguousarray(nxt)))
+    acap_t, lsa_t = tk.fwd_capture(*args, t(alpha0), *rest, theta=THETA)
+    bcap_t, lsb_t = tk.bwd_capture(*args, t(beta_end), *rest, theta=THETA)
+    np.testing.assert_allclose(acap_t.numpy(), np.asarray(acap_k)[:N, :B].T,
                                rtol=1e-5, atol=1e-30)
-    np.testing.assert_allclose(lsa_t.numpy(), np.asarray(lsa_k)[:N],
+    np.testing.assert_allclose(lsa_t.numpy(), np.asarray(lsa_k)[:B],
                                rtol=0, atol=1e-4)
-    np.testing.assert_allclose(bcap_t.numpy(), np.asarray(bcap_k)[:N, :N].T,
+    np.testing.assert_allclose(bcap_t.numpy(), np.asarray(bcap_k)[:N, :B].T,
                                rtol=1e-5, atol=1e-30)
-    np.testing.assert_allclose(lsb_t.numpy(), np.asarray(lsb_k)[:N],
+    np.testing.assert_allclose(lsb_t.numpy(), np.asarray(lsb_k)[:B],
                                rtol=0, atol=1e-4)
-    assert acap_t.numpy().any() and bcap_t.numpy().any()
+    fwd_none = (want < 0) | (want >= Dmax)
+    bwd_none = fwd_none | (want >= D)
+    assert not acap_t.numpy()[fwd_none].any()
+    assert not bcap_t.numpy()[bwd_none].any()
+    assert acap_t.numpy()[~fwd_none].any() and bcap_t.numpy()[~bwd_none].any()
 
 
 def test_capture_equals_row_of_full_sweep():
