@@ -264,6 +264,7 @@ def sweep_rows(G, bp, memory_gb, w):
     torch.cuda.synchronize()
     err, direct = compare_rows("paint_fwd", al_k, ls_k, al_p, ls_p,
                                torch.ones_like(valid))
+    rescaled = {False: rescaled_share(D, nxt, ls_p, False)}
     del al_p, ls_p
     res.append(make_row(
         "paint_fwd", "relate_tpu_torch/csrc/paint_fwd.cu",
@@ -286,7 +287,6 @@ def sweep_rows(G, bp, memory_gb, w):
         if bool((to_k * ~valid[..., None]).any()) or \
                 bool((lt_k * ~valid).any()):
             fail(f"{nm}: rows at and past D are not zero")
-        del to_p, lt_p
         if not emit_beta:
             topo, lstot = to_k, lt_k
             res.append(make_row(
@@ -297,7 +297,8 @@ def sweep_rows(G, bp, memory_gb, w):
                 8 * cells * N, shape=shape))
         else:
             res[-1]["emit_beta_max_abs_err"] = err
-        del to_k, lt_k
+            rescaled[True] = rescaled_share(D, nxt, lt_p, True)
+        del to_k, lt_k, to_p, lt_p
     del al_k, ls_k
 
     # B3 / B4 capture sweeps
@@ -311,13 +312,14 @@ def sweep_rows(G, bp, memory_gb, w):
                                all_b)
     walked = torch.minimum(want_f.long(), Dl - 1)   # rows after row 0
     rows_f = int(walked.sum().item())
-    ms_k = time_ms(ck, 3)
+    ms_k = time_ms(ck, 10)
     res.append(make_row(
         "paint_fwd_capture", "relate_tpu_torch/csrc/paint_capture.cu",
         "relate_tpu/ops/paint_kernels.py:394", err, direct,
         ms_k, time_ms(cp_, 1),
         rows_f * N + 3 * B * N * 4 + 2 * B * Dmax * 4, 6 * rows_f * N,
-        shape=shape, **chain(ms_k, walked, pk.capture_config(N, B, False))))
+        shape=shape, rescaled_row_share=rescaled[False],
+        **chain(ms_k, walked, pk.capture_config(N, B, False))))
 
     ck = lambda: pk.bwd_capture(D, want_b, be, kmask, mism, pfac, nxt,  # noqa: E731
                                 theta=THETA)
@@ -332,13 +334,14 @@ def sweep_rows(G, bp, memory_gb, w):
         fail("paint_bwd_capture: a target with no wanted row is not zero")
     walked = (Dl - want_b.long()) * hit
     rows_b = int(walked.sum().item())
-    ms_k = time_ms(ck, 3)
+    ms_k = time_ms(ck, 10)
     res.append(make_row(
         "paint_bwd_capture", "relate_tpu_torch/csrc/paint_capture.cu",
         "relate_tpu/ops/paint_kernels.py:515", err, direct,
         ms_k, time_ms(cp_, 1),
         rows_b * N + 3 * B * N * 4 + 2 * B * Dmax * 4, 8 * rows_b * N,
-        shape=shape, **chain(ms_k, walked, pk.capture_config(N, B, True))))
+        shape=shape, rescaled_row_share=rescaled[True],
+        **chain(ms_k, walked, pk.capture_config(N, B, True))))
     del ac_k, ac_p, bc_k, bc_p
 
     # a distance matrix assembled from the posterior above
@@ -869,7 +872,7 @@ def capture_edge_cases():
 
 AT_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
            "rows_rescaled_elsewhere", "rows_max", "us_per_row", "ring_rows",
-           "launch")
+           "launch", "rescaled_row_share")
 
 
 def phase_kernels(panels):

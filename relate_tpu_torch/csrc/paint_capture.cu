@@ -536,31 +536,11 @@ bwd_capture_kernel(Params p) {
     cp_async_wait<K - 1>();                       // my pieces of row j0
     __syncthreads();
 
+    // after a row's own part of the sum: hand the step values on, wait for
+    // the next row's bytes, sum, request row i + K into the slot just read,
+    // rescale (not the first row of the chain) and add to the logscale
     int s = 0;
-    for (int i = 0; i < R; ++i) {
-        const unsigned char* slot = ring + (size_t)s * p.slot_bytes;
-        const int off = (int)((uintptr_t)row & 15);
-        float part, inc = 0.f;
-        const bool first = i == 0 && init;
-        if (first) {
-            // row D[b] - 1: beta_end * kmask, no step, no rescale
-            part = bwd_row<V, KMS, false>(p, slot, off, be, km, kms, next,
-                                          0.f, 0.f);
-        } else {
-            if (i == 0) {
-                // past the last row (D > Dmax) the next row is the row itself
-#pragma unroll
-                for (int k = 0; k < V; ++k) be[k] = 0.f;
-                bwd_row<V, KMS, false>(p, slot, off, be, km, kms, next, 0.f,
-                                       0.f);
-            }
-            const float rx = bsum_eff * hdr[i & 1][0];
-            inc = hdr[i & 1][1];
-            const float b1 = rx / p.ntheta;
-            const float bt = rx / p.theta - b1;
-            part = bwd_row<V, KMS, true>(p, slot, off, be, km, kms, next, b1,
-                                         bt);
-        }
+    auto finish = [&](int i, float part, float inc, bool first) {
         pass_steps(st, hdr[(i + 1) & 1], i + 1, R, pf, nx, h_of);
         cp_async_wait<K - 2>();                   // my pieces of the next row
         const float bsum = block_sum(part, red[i & 1], warps);
@@ -578,14 +558,35 @@ bwd_capture_kernel(Params p) {
             logcorr = logf(safe);
             bsum_eff = 1.0f;
         }
-        // the first row's logscale is 0 (Kahan from 0)
         const float y = (inc + logcorr) - comp;
         const float t = pls + y;
         comp = (t - pls) - y;
         pls = t;
         row -= stride;
         if (++s == K) s = 0;
+    };
+    auto step = [&](int i) {
+        const float rx = bsum_eff * hdr[i & 1][0];
+        const float b1 = rx / p.ntheta;
+        const float bt = rx / p.theta - b1;
+        return bwd_row<V, KMS, true>(p, ring + (size_t)s * p.slot_bytes,
+                                     (int)((uintptr_t)row & 15), be, km, kms,
+                                     next, b1, bt);
+    };
+    const unsigned char* slot0 = ring;
+    const int off0 = (int)((uintptr_t)row & 15);
+    if (init) {
+        // row D[b] - 1: beta_end * kmask, no step, no rescale, logscale 0
+        finish(0, bwd_row<V, KMS, false>(p, slot0, off0, be, km, kms, next,
+                                         0.f, 0.f), 0.f, true);
+    } else {
+        // past the last row (D > Dmax) the next row is the row itself
+#pragma unroll
+        for (int k = 0; k < V; ++k) be[k] = 0.f;
+        bwd_row<V, KMS, false>(p, slot0, off0, be, km, kms, next, 0.f, 0.f);
+        finish(0, step(0), hdr[0][1], false);
     }
+    for (int i = 1; i < R; ++i) finish(i, step(i), hdr[i & 1][1], false);
     cp_async_wait<0>();
     store_row<V>(p, bn, be, pls);
 }
