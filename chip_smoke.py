@@ -21,16 +21,19 @@ Phases, each printing one JSON line: ``device``, ``build``, ``inputs``,
 ``kernels`` (the incremental merge scan also at N = 2 ... 1000, the sizes
 that leave blocks of its cluster of 8 empty or ragged, and with its
 cluster's launch configuration; the dense scans likewise, with the grid
-of their cooperative launch), ``main_path`` (N = 1024), ``run_all``
+of their cooperative launch; the capture sweeps with the time a row of the
+longest chain takes, their launch configuration and the share of rows the
+full plain sweep rescales), ``main_path`` (N = 1024), ``run_all``
 (N = 2048), ``run_all_n4096``, ``cpu_vs_card``; then the ``{"kernels": [...]}`` line,
 the card's name and power limit as ``nvidia-smi`` gives them, and the result
 line. The launch counts are set to 0 just before each path and read just
 after it. Any phase that fails ends the run with a non-zero exit code. Needs
 a CUDA device and no network. ``--phases a,b`` runs a subset (the build always runs);
 ``--phases profile`` adds a ``torch.profiler`` breakdown of Paint and one
-section of BuildTopology at N = 1024 and of one section of BuildTopology,
-FindEquivalentBranches and InferBranchLengths at N = 2048, which the
-default run leaves out;
+section of BuildTopology at N = 1024, of one section of BuildTopology,
+FindEquivalentBranches and InferBranchLengths at N = 2048, and of Paint at
+N = 4096 with host timers around the stepping-stone sweeps and the
+checkpoint writes, which the default run leaves out;
 ``--phases inc_edges`` holds only the incremental merge scan against its
 plain version at those edge sizes (a short check after an edit of it);
 ``--phases dense_edges`` does the same for the two dense merge scans (B5
@@ -40,8 +43,8 @@ at N = 1024 and N = 2048; ``--phases sweep_edges`` for the two capture
 sweeps (B3 and B4) on seeded synthetic inputs at N = 2, 3, 100, 1000 and
 5000 (rows that start off a 16-byte boundary), at N = 16384 and 25827 (the
 widest, on few targets), with wanted rows -1, 0, D-1, D, Dmax and beyond,
-targets with D = 2, and rows that rescale every other or every step. The kernels
-phase runs those cases too.
+targets with D = 2, and rows that rescale every other or every step. The
+kernels phase runs those cases too.
 
 How the kernels are compared. The sweeps rescale a row whenever its sum
 leaves [1e-10, 1e10]; the kernel and the plain version add the row in

@@ -208,6 +208,8 @@ __device__ __forceinline__ float block_sum(float v, float* red, int warps) {
     return s;
 }
 
+// The state, kmask and output rows move in 16-byte pieces where each row
+// starts on a 16-byte boundary, else one float at a time.
 __device__ __forceinline__ bool vec4_ok(const Params& p) {
     return (p.N & 3) == 0 &&
            (((uintptr_t)p.state0 | (uintptr_t)p.kmask | (uintptr_t)p.out)

@@ -99,7 +99,7 @@ def _check_common(D, state, kmask, mism, pfac, nxt):
 
 
 def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+    return ctypes.c_void_p(t.data_ptr())
 
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + \
