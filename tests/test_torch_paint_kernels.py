@@ -33,28 +33,39 @@ def _fixture(seed, N, L):
     return G, plan, alpha0, beta_end, rng
 
 
-def _jax_inputs(G, plan, alpha0, beta_end):
-    L, N = G.shape
-    B, Dmax = plan.idx.shape
-    idx = np.zeros((BP, Dmax), np.int32); idx[:B] = plan.idx
-    seqk = np.zeros((BP, Dmax), np.uint8); seqk[:B] = plan.seqk
-    D = np.zeros(BP, np.int32); D[:B] = plan.D
-    Gp = np.zeros((L, NP), np.uint8); Gp[:, :N] = G
-    grows = Gp[idx.T.reshape(-1)].reshape(Dmax, BP, NP)
-    mism = (seqk.T[:, :, None] > grows).astype(np.int8).transpose(0, 2, 1)
-    pfacT = np.zeros((Dmax, BP), np.float32); pfacT[:, :B] = plan.pfac.T
-    nxtT = np.zeros((Dmax, BP), np.float32); nxtT[:, :B] = plan.nxt.T
+def _jax_layout(D, mism, pfac, nxt, alpha0, beta_end, kmask):
+    """Inputs in the port's layout ((Dmax, B, N) / (B, N) / (B, Dmax)) put
+    in the JAX kernels' padded layout: (D (BP,), mism (Dmax, NP, BP),
+    the pre-shifted (pfacm1, nxtm1, pfacp1, nxtp1) (Dmax, BP), alpha0,
+    beta_end, kmask (NP, BP)). Padded sources have kmask 0."""
+    Dmax, B, N = mism.shape
+    Dp = np.zeros(BP, np.int32); Dp[:B] = D
+    mp = np.zeros((Dmax, NP, BP), np.int8)
+    mp[:, :N, :B] = mism.transpose(0, 2, 1)
+    pfacT = np.zeros((Dmax, BP), np.float32); pfacT[:, :B] = pfac.T
+    nxtT = np.zeros((Dmax, BP), np.float32); nxtT[:, :B] = nxt.T
     z = np.zeros((1, BP), np.float32)
     shifts = (np.concatenate([z, pfacT[:-1]]), np.concatenate([z, nxtT[:-1]]),
               np.concatenate([pfacT[1:], z]), np.concatenate([nxtT[1:], z]))
-    a0 = np.zeros((NP, BP), np.float32); a0[:N, :B] = alpha0.T
-    be = np.zeros((NP, BP), np.float32); be[:N, :B] = beta_end.T
-    kmask = np.zeros((NP, BP), np.float32); kmask[:N, :B] = plan.kmask.T
-    return D, mism, shifts, a0, be, kmask
+
+    def pad(x):
+        out = np.zeros((NP, BP), np.float32)
+        out[:N, :B] = x.T
+        return out
+    return Dp, mp, shifts, pad(alpha0), pad(beta_end), pad(kmask)
+
+
+def _plan_mism(G, plan):
+    return (plan.seqk.T[:, :, None] > G[plan.idx.T]).astype(np.int8)
+
+
+def _jax_inputs(G, plan, alpha0, beta_end):
+    return _jax_layout(plan.D, _plan_mism(G, plan), plan.pfac, plan.nxt,
+                       alpha0, beta_end, plan.kmask)
 
 
 def _torch_inputs(G, plan, alpha0, beta_end):
-    mism = (plan.seqk.T[:, :, None] > G[plan.idx.T]).astype(np.int8)
+    mism = _plan_mism(G, plan)
     t = torch.from_numpy
     return dict(D=t(plan.D.astype(np.int32)), kmask=t(plan.kmask),
                 mism=t(np.ascontiguousarray(mism)),
@@ -140,7 +151,7 @@ def _capture_case(kind, seed, N, L):
     G, plan, alpha0, beta_end, rng = _fixture(seed, N, L)
     D = plan.D.astype(np.int32).copy()
     Dmax = plan.idx.shape[1]
-    mism = (plan.seqk.T[:, :, None] > G[plan.idx.T]).astype(np.int8)
+    mism = _plan_mism(G, plan)
     want = rng.integers(0, plan.D).astype(np.int32)
     want[0] = 0
     want[1] = plan.D[1] - 1
@@ -152,31 +163,6 @@ def _capture_case(kind, seed, N, L):
         want[1:4] = (0, 1, 5)           # row 0, row D - 1, and past D
     return (D, want, np.ascontiguousarray(mism), plan.pfac, plan.nxt,
             alpha0, beta_end, plan.kmask)
-
-
-def _jax_capture_inputs(D, want, mism, pfac, nxt, alpha0, beta_end, kmask):
-    """The same inputs in the JAX kernels' padded (Dmax, N, B) / (N, B)
-    layout, with the pre-shifted step vectors."""
-    Dmax, B, N = mism.shape
-    Dp = np.zeros(BP, np.int32); Dp[:B] = D
-    wp = np.zeros(BP, np.int32); wp[:B] = want
-    mp = np.zeros((Dmax, NP, BP), np.int8)
-    mp[:, :N, :B] = mism.transpose(0, 2, 1)
-    pfacT = np.zeros((Dmax, BP), np.float32); pfacT[:, :B] = pfac.T
-    nxtT = np.zeros((Dmax, BP), np.float32); nxtT[:, :B] = nxt.T
-    z = np.zeros((1, BP), np.float32)
-
-    def pad(x):
-        out = np.zeros((NP, BP), np.float32)
-        out[:N, :B] = x.T
-        return jnp.asarray(out)
-    j = jnp.asarray
-    return dict(D=j(Dp[None, :]), want=j(wp[None, :]), mism=j(mp),
-                a0=pad(alpha0), be=pad(beta_end), kmask=pad(kmask),
-                pfacm1=j(np.concatenate([z, pfacT[:-1]])),
-                nxtm1=j(np.concatenate([z, nxtT[:-1]])),
-                pfacp1=j(np.concatenate([pfacT[1:], z])),
-                nxtp1=j(np.concatenate([nxtT[1:], z])))
 
 
 @pytest.mark.parametrize("kind,seed,N,L", [
@@ -199,14 +185,16 @@ def test_capture_plain_matches_pallas(kind, seed, N, L):
     D, want, mism, pfac, nxt, alpha0, beta_end, kmask = _capture_case(
         kind, seed, N, L)
     Dmax, B, _ = mism.shape
-    ji = _jax_capture_inputs(D, want, mism, pfac, nxt, alpha0, beta_end,
-                             kmask)
+    Dp, mp, shifts, a0, be, km = _jax_layout(D, mism, pfac, nxt, alpha0,
+                                             beta_end, kmask)
+    wp = np.zeros(BP, np.int32); wp[:B] = want
+    j = jnp.asarray
     acap_k, lsa_k = jk.fwd_capture_pallas(
-        ji["D"], ji["want"], ji["a0"], ji["kmask"], ji["mism"],
-        ji["pfacm1"], ji["nxtm1"], theta=THETA, interpret=True)
+        j(Dp[None, :]), j(wp[None, :]), j(a0), j(km), j(mp), j(shifts[0]),
+        j(shifts[1]), theta=THETA, interpret=True)
     bcap_k, lsb_k = jk.bwd_capture_pallas(
-        ji["D"], ji["want"], ji["be"], ji["kmask"], ji["mism"],
-        ji["pfacp1"], ji["nxtp1"], theta=THETA, interpret=True)
+        j(Dp[None, :]), j(wp[None, :]), j(be), j(km), j(mp), j(shifts[2]),
+        j(shifts[3]), theta=THETA, interpret=True)
 
     t = torch.from_numpy
     args = (t(D), t(want))
