@@ -48,8 +48,8 @@
 //     `off` bytes into its slot. A thread reads its 16 bytes of a group with
 //     one 16-byte load where off == 0, else with five 4-byte loads and
 //     funnel shifts;
-//   - the two step values a row needs (pfac, nxt) are loaded T rows ahead by
-//     the thread whose turn it is and handed over through shared memory;
+//   - the two step values a row needs (pfac, nxt) are loaded 32 rows ahead,
+//     one row a lane, and taken by every lane with a shuffle;
 //   - one sum a row: a butterfly of shuffles, which leaves the same value in
 //     every lane; in a block of several warps each warp's sum goes into a
 //     word of a buffer chosen by row parity and after the one barrier every
@@ -58,7 +58,8 @@
 //   - a byte becomes a float without a conversion instruction: byte ^ 0x80 in
 //     the low byte of 0x4B000000 is the float 2^23 + 128 + byte, exactly;
 //   - the backward sweep keeps the bytes of the row it came from (mism[j+1])
-//     in registers, so no row is read twice.
+//     in registers, so no row is read twice, and divides by theta and
+//     1 - theta through their reciprocals (`quotient`).
 // The rescale divides in registers as the plain version does (alpha / safe).
 
 #include <cuda_runtime.h>
@@ -87,6 +88,7 @@ struct Params {
     int slot_bytes;         // bytes of one ring slot
     uint32_t magic_hi;      // 0x4B000000, a register operand of PRMT
     float theta, ntheta, theta_ratio;
+    float inv_theta, inv_ntheta;   // 1 / theta, 1 / ntheta, rounded once
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -109,14 +111,19 @@ __device__ __forceinline__ uintptr_t floor16(const void* p) {
 }
 
 // Start copying the N bytes at `row` into `slot`: the 16-byte pieces that
-// cover them, shared out over the block's threads. A piece never leaves the
-// pages of the bytes it carries.
+// cover them, at most V / 16 + 1 a thread (the block has N / V threads or
+// more). A piece never leaves the pages of the bytes it carries.
+template <int V>
 __device__ __forceinline__ void fetch_row(unsigned char* slot,
                                           const int8_t* row, int N) {
     const uintptr_t a0 = floor16(row);
     const int pieces = (int)((floor16(row + N + 15) - a0) >> 4);
-    for (int k = threadIdx.x; k < pieces; k += blockDim.x)
-        cp_async16(slot + 16 * k, (const void*)(a0 + 16 * (uintptr_t)k));
+#pragma unroll
+    for (int m = 0; m <= V / 16; ++m) {
+        const int k = (int)threadIdx.x + m * (int)blockDim.x;
+        if (k < pieces)
+            cp_async16(slot + 16 * k, (const void*)(a0 + 16 * (uintptr_t)k));
+    }
 }
 
 // The 16 bytes of group u of the row that starts `off` bytes into `slot`.
@@ -149,13 +156,39 @@ __device__ __forceinline__ float byte_value(uint32_t xw, uint32_t hi, int e) {
     return __int_as_float(magic_bits(xw, hi, e)) - MAGIC;
 }
 
-// The step values (pfac, nxt) of a row travel ahead of the chain: thread t
-// holds those of the rows t, t + T, t + 2T, ... of the sequence, loaded T
-// rows before they are needed, and hands one row's over through `hdr` just
-// before the sum of the row in front of it.
+// The step values (pfac, nxt) of the rows of a target's sequence: lane l of
+// each warp holds those of rows 32 c + l of the current batch c and of the
+// next batch, loaded 32 rows before they are needed; row i takes its
+// values from lane i % 32 with a shuffle. `h_of(i)` is the index into
+// pfac/nxt of sequence row i, negative for none.
+template <typename H>
 struct Steps {
-    float pf, nx;
-    int at;       // the sequence row whose values this thread holds
+    const float* pf;
+    const float* nx;
+    int R;
+    H h_of;
+    float pf_cur, nx_cur, pf_next, nx_next;
+
+    __device__ __forceinline__ void load(int batch, float& p, float& n) const {
+        const int i = 32 * batch + (int)(threadIdx.x & 31);
+        const int h = i < R ? h_of(i) : -1;
+        p = h >= 0 ? pf[h] : 0.f;
+        n = h >= 0 ? nx[h] : 0.f;
+    }
+    __device__ __forceinline__ void start() {
+        load(0, pf_cur, nx_cur);
+        load(1, pf_next, nx_next);
+    }
+    // the values of row i, and after the batch's last row the next batches
+    __device__ __forceinline__ void at(int i, float& p, float& n) {
+        p = __shfl_sync(0xffffffffu, pf_cur, i & 31);
+        n = __shfl_sync(0xffffffffu, nx_cur, i & 31);
+        if ((i & 31) == 31) {
+            pf_cur = pf_next;
+            nx_cur = nx_next;
+            load((i >> 5) + 2, pf_next, nx_next);
+        }
+    }
 };
 
 // The bytes of the row after this one in the backward sweep (row j + 1),
@@ -183,6 +216,14 @@ template <int V> struct NextRow<V, true> {
         if ((idx & 3) == 3) w[idx >> 2] = xw;
     }
 };
+
+// a / d from the reciprocal of d rounded once: q = a (1/d), then one fused
+// correction, q + (a - d q) (1/d) (Markstein), which rounds as a / d does
+// for normal operands and keeps the division's slow path off the chain.
+__device__ __forceinline__ float quotient(float a, float d, float inv) {
+    const float q = a * inv;
+    return fmaf(fmaf(-d, q, a), inv, q);
+}
 
 // Sum over the block; every thread returns the same value. A butterfly of
 // shuffles leaves the same sum in every lane (a + b == b + a), so a block of
@@ -308,29 +349,6 @@ __device__ __forceinline__ void store_row(const Params& p, size_t bn,
     if (threadIdx.x == 0) p.lsout[blockIdx.x] = ls;
 }
 
-// Hand the step values of sequence row `next` over through `hdr` (by the
-// thread that holds them) and load that thread's next ones; `h_of(i)` is
-// the index into pfac/nxt of sequence row i, negative for none.
-template <typename H>
-__device__ __forceinline__ void pass_steps(Steps& st, float* hdr, int next,
-                                           int R, const float* pf,
-                                           const float* nx, H h_of) {
-    if (st.at != next) return;
-    if (next < R) { hdr[0] = st.pf; hdr[1] = st.nx; }
-    st.at += blockDim.x;
-    const int h = st.at < R ? h_of(st.at) : -1;
-    if (h >= 0) { st.pf = pf[h]; st.nx = nx[h]; }
-}
-
-template <typename H>
-__device__ __forceinline__ Steps first_steps(int R, const float* pf,
-                                             const float* nx, H h_of) {
-    Steps st{0.f, 0.f, (int)threadIdx.x};
-    const int h = st.at < R ? h_of(st.at) : -1;
-    if (h >= 0) { st.pf = pf[h]; st.nx = nx[h]; }
-    return st;
-}
-
 __device__ __forceinline__ void zero_red(float* red) {
     for (int k = threadIdx.x; k < 64; k += blockDim.x) red[k] = 0.f;
 }
@@ -354,7 +372,6 @@ fwd_capture_kernel(Params p) {
     constexpr int K = Shape<V, KMS>::ring;
     extern __shared__ __align__(16) unsigned char dyn[];
     __shared__ __align__(16) float red[2][32];
-    __shared__ float hdr[2][2];
 
     const int b = blockIdx.x;
     const int T = blockDim.x, warps = T >> 5;
@@ -374,16 +391,15 @@ fwd_capture_kernel(Params p) {
     float* kms = reinterpret_cast<float*>(dyn + (size_t)K * p.slot_bytes);
 #pragma unroll
     for (int i = 0; i < K; ++i) {
-        if (i < R) fetch_row(ring + (size_t)i * p.slot_bytes, row + i * stride,
+        if (i < R) fetch_row<V>(ring + (size_t)i * p.slot_bytes, row + i * stride,
                              p.N);
         cp_async_commit();
     }
     zero_red(&red[0][0]);
-    const float* pf = p.pfac + (size_t)b * p.Dmax;
-    const float* nx = p.nxt + (size_t)b * p.Dmax;
     auto h_of = [](int i) { return i; };
-    Steps st = first_steps(R, pf, nx, h_of);
-    pass_steps(st, hdr[0], 0, R, pf, nx, h_of);
+    Steps<decltype(h_of)> st{p.pfac + (size_t)b * p.Dmax,
+                             p.nxt + (size_t)b * p.Dmax, R, h_of};
+    st.start();
 
     float a[V], km[KMS ? 1 : V];
     const float part = load_state<V, KMS>(p, bn, a, km, kms);
@@ -396,8 +412,9 @@ fwd_capture_kernel(Params p) {
     for (int i = 0; i < R; ++i) {
         const unsigned char* slot = ring + (size_t)s * p.slot_bytes;
         const int off = (int)((uintptr_t)row & 15);
-        const float rx = asum_eff * hdr[i & 1][0];
-        const float nxv = hdr[i & 1][1];
+        float pfv, nxv;
+        st.at(i, pfv, nxv);
+        const float rx = asum_eff * pfv;
         float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
         for (int g = 0; g < V / 16; ++g) {
@@ -419,12 +436,11 @@ fwd_capture_kernel(Params p) {
                 }
             }
         }
-        pass_steps(st, hdr[(i + 1) & 1], i + 1, R, pf, nx, h_of);
         cp_async_wait<K - 2>();                   // my pieces of the next row
         const float asum = block_sum((acc[0] + acc[1]) + (acc[2] + acc[3]),
                                      red[i & 1], warps);
         // every thread has read the slot: it takes sequence row i + K
-        if (i + K < R) fetch_row(ring + (size_t)s * p.slot_bytes,
+        if (i + K < R) fetch_row<V>(ring + (size_t)s * p.slot_bytes,
                                  row + K * stride, p.N);
         cp_async_commit();
         const bool cond = (asum < LOWER_RESCALE) || (asum > UPPER_RESCALE);
@@ -495,7 +511,6 @@ bwd_capture_kernel(Params p) {
     constexpr int K = Shape<V, KMS>::ring;
     extern __shared__ __align__(16) unsigned char dyn[];
     __shared__ __align__(16) float red[2][32];
-    __shared__ float hdr[2][2];
 
     const int b = blockIdx.x;
     const int T = blockDim.x, warps = T >> 5;
@@ -517,19 +532,18 @@ bwd_capture_kernel(Params p) {
     float* kms = reinterpret_cast<float*>(dyn + (size_t)K * p.slot_bytes);
 #pragma unroll
     for (int i = 0; i < K; ++i) {
-        if (i < R) fetch_row(ring + (size_t)i * p.slot_bytes, row - i * stride,
+        if (i < R) fetch_row<V>(ring + (size_t)i * p.slot_bytes, row - i * stride,
                              p.N);
         cp_async_commit();
     }
     zero_red(&red[0][0]);
-    const float* pf = p.pfac + (size_t)b * p.Dmax;
-    const float* nx = p.nxt + (size_t)b * p.Dmax;
     const int Dmax = p.Dmax;
     auto h_of = [j0, init, Dmax](int i) {
         return i == 0 && init ? -1 : min(j0 - i + 1, Dmax - 1);
     };
-    Steps st = first_steps(R, pf, nx, h_of);
-    pass_steps(st, hdr[0], 0, R, pf, nx, h_of);
+    Steps<decltype(h_of)> st{p.pfac + (size_t)b * p.Dmax,
+                             p.nxt + (size_t)b * p.Dmax, R, h_of};
+    st.start();
 
     float be[V], km[KMS ? 1 : V];
     load_state<V, KMS>(p, bn, be, km, kms);
@@ -538,15 +552,14 @@ bwd_capture_kernel(Params p) {
     cp_async_wait<K - 1>();                       // my pieces of row j0
     __syncthreads();
 
-    // after a row's own part of the sum: hand the step values on, wait for
-    // the next row's bytes, sum, request row i + K into the slot just read,
-    // rescale (not the first row of the chain) and add to the logscale
+    // after a row's own part of the sum: wait for the next row's bytes,
+    // sum, request row i + K into the slot just read, rescale (not the first
+    // row of the chain) and add to the logscale
     int s = 0;
     auto finish = [&](int i, float part, float inc, bool first) {
-        pass_steps(st, hdr[(i + 1) & 1], i + 1, R, pf, nx, h_of);
         cp_async_wait<K - 2>();                   // my pieces of the next row
         const float bsum = block_sum(part, red[i & 1], warps);
-        if (i + K < R) fetch_row(ring + (size_t)s * p.slot_bytes,
+        if (i + K < R) fetch_row<V>(ring + (size_t)s * p.slot_bytes,
                                  row - K * stride, p.N);
         cp_async_commit();
         const bool cond = !first &&
@@ -567,10 +580,13 @@ bwd_capture_kernel(Params p) {
         row -= stride;
         if (++s == K) s = 0;
     };
+    float inc = 0.f;
     auto step = [&](int i) {
-        const float rx = bsum_eff * hdr[i & 1][0];
-        const float b1 = rx / p.ntheta;
-        const float bt = rx / p.theta - b1;
+        float pfv;
+        st.at(i, pfv, inc);
+        const float rx = bsum_eff * pfv;
+        const float b1 = quotient(rx, p.ntheta, p.inv_ntheta);
+        const float bt = quotient(rx, p.theta, p.inv_theta) - b1;
         return bwd_row<V, KMS, true>(p, ring + (size_t)s * p.slot_bytes,
                                      (int)((uintptr_t)row & 15), be, km, kms,
                                      next, b1, bt);
@@ -586,9 +602,13 @@ bwd_capture_kernel(Params p) {
 #pragma unroll
         for (int k = 0; k < V; ++k) be[k] = 0.f;
         bwd_row<V, KMS, false>(p, slot0, off0, be, km, kms, next, 0.f, 0.f);
-        finish(0, step(0), hdr[0][1], false);
+        const float part = step(0);
+        finish(0, part, inc, false);
     }
-    for (int i = 1; i < R; ++i) finish(i, step(i), hdr[i & 1][1], false);
+    for (int i = 1; i < R; ++i) {
+        const float part = step(i);
+        finish(i, part, inc, false);
+    }
     cp_async_wait<0>();
     store_row<V>(p, bn, be, pls);
 }
@@ -700,6 +720,8 @@ extern "C" int paint_capture_launch(int backward, const void* D,
     p.theta = theta;
     p.ntheta = ntheta;
     p.theta_ratio = theta_ratio;
+    p.inv_theta = (float)(1.0 / (double)theta);
+    p.inv_ntheta = (float)(1.0 / (double)ntheta);
     void* args[] = {&p};
     e = cudaLaunchKernel(k, dim3(B), dim3(c.threads), args, c.smem,
                          (cudaStream_t)stream);
