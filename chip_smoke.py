@@ -21,9 +21,10 @@ Phases, each printing one JSON line: ``device``, ``build``, ``inputs``,
 ``kernels`` (the incremental merge scan also at N = 2 ... 1000, the sizes
 that leave blocks of its cluster of 8 empty or ragged, and with its
 cluster's launch configuration; the dense scans likewise, with the grid
-of their cooperative launch; the capture sweeps with the time a row of the
-longest chain takes, their launch configuration and the share of rows the
-full plain sweep rescales), ``main_path`` (N = 1024), ``run_all``
+of their cooperative launch; the backward sweep and the capture sweeps
+with the time a row of the longest chain takes, their launch configuration
+(the backward sweep's with its bytes in flight a SM) and the share of rows
+the full plain sweep rescales), ``main_path`` (N = 1024), ``run_all``
 (N = 2048), ``run_all_n4096``, ``cpu_vs_card``; then the ``{"kernels": [...]}`` line,
 the card's name and power limit as ``nvidia-smi`` gives them, and the result
 line. The launch counts are set to 0 just before each path and read just
@@ -39,12 +40,13 @@ plain version at those edge sizes (a short check after an edit of it);
 ``--phases dense_edges`` does the same for the two dense merge scans (B5
 and B6) at N = 2 ... 1000, where most warps and blocks of their cooperative
 grid own no row, and with a negative threshold (the fallback at every step)
-at N = 1024 and N = 2048; ``--phases sweep_edges`` for the two capture
-sweeps (B3 and B4) on seeded synthetic inputs at N = 2, 3, 100, 1000 and
-5000 (rows that start off a 16-byte boundary), at N = 16384 and 25827 (the
-widest, on few targets), with wanted rows -1, 0, D-1, D, Dmax and beyond,
-targets with D = 2, and rows that rescale every other or every step. The
-kernels phase runs those cases too.
+at N = 1024 and N = 2048; ``--phases sweep_edges`` for the full backward
+sweep in both modes (B2) and the two capture sweeps (B3 and B4) on seeded
+synthetic inputs at N = 2, 3, 100, 1000 and 5000 (rows that start off a
+16-byte boundary), at N = 16384 and 25827 (the widest, on few targets),
+with wanted rows -1, 0, D-1, D, Dmax and beyond, targets with D = 2, and
+rows that rescale every other or every step. The kernels phase runs those
+cases too.
 
 How the kernels are compared. The sweeps rescale a row whenever its sum
 leaves [1e-10, 1e10]; the kernel and the plain version add the row in
@@ -86,8 +88,8 @@ N_DENSE_EDGES = (2, 3, 9, 33, 100, 1000)  # fewer rows than warps in B5's and
                                           # B6's grid, or a ragged last block
 N_SWEEP_EDGES = (2, 3, 100, 1000, 5000)   # fewer sources than a warp's, rows
                                           # off a 16-byte boundary
-N_SWEEP_WIDE = (16384, 25827)  # the capture sweeps' widest blocks, and the
-                               # largest width the wrappers take
+N_SWEEP_WIDE = (16384, 25827)  # the streaming sweeps' widest blocks, and
+                               # the largest width the wrappers take
 L_SNPS = 8192
 L_SNPS_INC = 4096              # of the N = 4096 panel
 SEED = 20240611
@@ -209,8 +211,8 @@ def make_row(name, source, replaces, err, direct, ms_k, ms_p, nbytes, ops,
 
 
 def chain(ms, walked, launch):
-    """A capture sweep's chain: the most rows a target walks, the time a row
-    of that chain takes, and the launch configuration."""
+    """A streaming sweep's chain: the most rows a target walks, the time a
+    row of that chain takes, and the launch configuration."""
     rows = int(walked.max().item())
     return dict(rows_max=rows, us_per_row=ms * 1e3 / max(rows, 1),
                 ring_rows=launch["ring_rows"], launch=launch)
@@ -290,18 +292,24 @@ def sweep_rows(G, bp, memory_gb, w):
         if bool((to_k * ~valid[..., None]).any()) or \
                 bool((lt_k * ~valid).any()):
             fail(f"{nm}: rows at and past D are not zero")
+        ms_k = time_ms(bk, 10)
+        launch = pk.bwd_config(N, B, emit_beta=emit_beta)
         if not emit_beta:
             topo, lstot = to_k, lt_k
             res.append(make_row(
                 "paint_bwd", "relate_tpu_torch/csrc/paint_bwd.cu",
                 "relate_tpu/ops/paint_kernels.py:284", err, direct,
-                time_ms(bk, 3), time_ms(bpl, 1),
+                ms_k, time_ms(bpl, 1),
                 cells * N * 5 + Dmax * B * N * 4 + small + Dmax * B * 4,
-                8 * cells * N, shape=shape))
+                8 * cells * N, shape=shape, **chain(ms_k, Dl, launch),
+                bytes_in_flight_per_sm=launch["bytes_in_flight_per_sm"]))
         else:
-            res[-1]["emit_beta_max_abs_err"] = err
+            res[-1].update(emit_beta_max_abs_err=err, emit_beta_ms=ms_k,
+                           emit_beta_rows_rescaled_elsewhere=direct,
+                           emit_beta_launch=launch)
             rescaled[True] = rescaled_share(D, nxt, lt_p, True)
         del to_k, lt_k, to_p, lt_p
+    res[-1]["rescaled_row_share"] = rescaled[True]
     del al_k, ls_k
 
     # B3 / B4 capture sweeps
@@ -843,8 +851,41 @@ def capture_against_plain(detail, label, theta, inputs):
                        "launch": pk.capture_config(N, B, backward)})
 
 
-def capture_edge_cases():
-    """B3 and B4 at the edges of their blocks and rings: N = 2, 3, 100,
+def bwd_against_plain(detail, label, theta, inputs):
+    """B2 in both modes against its plain version on one input of the
+    capture sweeps, with the plain forward sweep's rows as alphas and lsf:
+    the scale-free row comparison on the rows below D, exact zeros at and
+    past D. Appends one record a mode to ``detail``."""
+    from relate_tpu_torch.ops import paint_kernels as pk
+    D, _, state, kmask, mism, pfac, nxt = inputs
+    Dmax, B, N = mism.shape
+    alphas, lsf = pk.fwd_plain(D, state, kmask, mism, pfac, nxt, theta=theta)
+    valid = rows_valid(D, Dmax)
+    beta_ls = None
+    for emit_beta in (True, False):
+        name = "paint_bwd" + ("[emit_beta]" if emit_beta else "")
+        out_k, ls_k = pk.bwd(D, state, kmask, mism, pfac, nxt, alphas, lsf,
+                             theta=theta, emit_beta=emit_beta)
+        out_p, ls_p = pk.bwd_plain(D, state, kmask, mism, pfac, nxt, alphas,
+                                   lsf, theta=theta, emit_beta=emit_beta)
+        torch.cuda.synchronize()
+        what = f"{name}[N={N}, {label}]"
+        err, direct = compare_rows(what, out_k, ls_k, out_p, ls_p, valid)
+        if bool((out_k * ~valid[..., None]).any()) or \
+                bool((ls_k * ~valid).any()):
+            fail(f"{what}: rows at and past D are not zero")
+        if emit_beta:
+            beta_ls = ls_p
+        detail.append({"N": N, "B": B, "Dmax": Dmax, "case": label,
+                       "kernel": name, "rows": int(valid.sum()),
+                       "max_abs_err": err, "rows_rescaled_elsewhere": direct,
+                       "rescaled_row_share": rescaled_share(D, nxt, beta_ls,
+                                                            True),
+                       "launch": pk.bwd_config(N, B, emit_beta=emit_beta)})
+
+
+def sweep_edge_cases():
+    """B2, B3 and B4 at the edges of their blocks and rings: N = 2, 3, 100,
     1000 and 5000 (fewer sources than a warp's, and rows that start off a
     16-byte boundary), the wanted rows -1, 0, D-1, D, Dmax and drawn ones,
     all targets at D = 2, rows that rescale at every other step (theta
@@ -852,30 +893,31 @@ def capture_edge_cases():
     1e11); and N = 16384 and
     N = 25827, the widest blocks, on 4 targets. Returns the records."""
     detail = []
+
+    def both(label, theta, inputs):
+        capture_against_plain(detail, label, theta, inputs)
+        bwd_against_plain(detail, label, theta, inputs)
+
     for i, n in enumerate(N_SWEEP_EDGES):
-        capture_against_plain(detail, "mixed", THETA,
-                              capture_inputs(n, 24, 40, SEED + i))
+        both("mixed", THETA, capture_inputs(n, 24, 40, SEED + i))
     for n in (100, 1000):
-        capture_against_plain(
-            detail, "theta 0.999999: a rescale every other step", 0.999999,
-            capture_inputs(n, 24, 40, SEED + n, density=0.95))
-        capture_against_plain(
-            detail, "pfac 1e11: a rescale every step", THETA,
-            capture_inputs(n, 24, 40, SEED + 2 * n, pfac_scale=1e11))
-    capture_against_plain(detail, "D = 2 for all targets", THETA,
-                          capture_inputs(1000, 24, 6, SEED + 7, d_max=2))
+        both("theta 0.999999: a rescale every other step", 0.999999,
+             capture_inputs(n, 24, 40, SEED + n, density=0.95))
+        both("pfac 1e11: a rescale every step", THETA,
+             capture_inputs(n, 24, 40, SEED + 2 * n, pfac_scale=1e11))
+    both("D = 2 for all targets", THETA,
+         capture_inputs(1000, 24, 6, SEED + 7, d_max=2))
     for i, n in enumerate(N_SWEEP_WIDE):
-        capture_against_plain(detail, "mixed", THETA,
-                              capture_inputs(n, 4, 48, SEED + 11 + i))
-    capture_against_plain(
-        detail, "pfac 1e11: a rescale every step", THETA,
-        capture_inputs(N_SWEEP_WIDE[-1], 4, 48, SEED + 13, pfac_scale=1e11))
+        both("mixed", THETA, capture_inputs(n, 4, 48, SEED + 11 + i))
+    both("pfac 1e11: a rescale every step", THETA,
+         capture_inputs(N_SWEEP_WIDE[-1], 4, 48, SEED + 13, pfac_scale=1e11))
     return detail
 
 
 AT_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
            "rows_rescaled_elsewhere", "rows_max", "us_per_row", "ring_rows",
-           "launch", "rescaled_row_share")
+           "launch", "rescaled_row_share", "bytes_in_flight_per_sm",
+           "emit_beta_max_abs_err", "emit_beta_ms", "emit_beta_launch")
 
 
 def phase_kernels(panels):
@@ -887,10 +929,11 @@ def phase_kernels(panels):
     scan holds those at N = 2048, the incremental scan's those at
     N = 4096."""
     res, mat_small = sweep_rows(*panels[N_HAP], w=1)
-    edges = capture_edge_cases()
+    edges = sweep_edge_cases()
     for row in res:
-        if row["name"].endswith("_capture"):
-            row["cases"] = [c for c in edges if c["kernel"] == row["name"]]
+        cases = [c for c in edges if c["kernel"].split("[")[0] == row["name"]]
+        if cases:
+            row["cases"] = cases
     res.append(merge_scan_row(mat_small))
     torch.cuda.empty_cache()
     wide, mat_large = sweep_rows(*panels[N_LARGE], w=1)
@@ -929,12 +972,13 @@ def phase_dense_edges():
 
 
 def phase_sweep_edges():
-    """Only B3 and B4 at the edges of their blocks and rings against their
-    plain versions (``--phases sweep_edges``, a short check of a new
+    """Only B2, B3 and B4 at the edges of their blocks and rings against
+    their plain versions (``--phases sweep_edges``, a short check of a new
     build)."""
-    emit("sweep_edges", cases=capture_edge_cases(),
+    emit("sweep_edges", cases=sweep_edge_cases(),
          tolerance="rows/sum rtol 1e-5, logscale+log(sum) atol 2e-3; "
-                   "targets with no wanted row exactly zero")
+                   "targets with no wanted row and rows at and past D "
+                   "exactly zero")
 
 
 def reset_counts():

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
 library ``build/<name>-<hash>.so`` (``nvcc`` for ``sm_90a``), loaded with
-``ctypes``. The hash covers the source text and the flags, so an edited
-source is rebuilt and a stale library is never picked up. ``build_all``
-starts one ``nvcc`` per source at the same time.
+``ctypes``. The hash covers the source text, the text of the local headers
+it includes (``#include "x.cuh"``, from ``csrc/``) and the flags, so an
+edited source or header is rebuilt and a stale library is never picked up.
+``build_all`` starts one ``nvcc`` per source at the same time.
 
 Nothing here runs when the package is imported: a machine without ``nvcc``
 imports every module and only fails when a CUDA tensor reaches a kernel
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -36,6 +38,8 @@ EXTRA_FLAGS: Dict[str, List[str]] = {
 }
 SOURCES = ("paint_fwd", "paint_bwd", "paint_capture", "merge_scan",
            "merge_scan_inc")
+
+_LOCAL_INCLUDE = re.compile(rb'^#include "([^"]+)"', re.MULTILINE)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -61,7 +65,11 @@ def _target(name: str) -> str:
     src = os.path.join(CSRC_DIR, name + ".cu")
     h = hashlib.sha256()
     with open(src, "rb") as f:
-        h.update(f.read())
+        text = f.read()
+    h.update(text)
+    for header in _LOCAL_INCLUDE.findall(text):
+        with open(os.path.join(CSRC_DIR, header.decode()), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(_flags(name)).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 

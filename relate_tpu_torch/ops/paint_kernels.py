@@ -4,7 +4,8 @@ Counterpart of ``relate_tpu/ops/paint_kernels.py``. The four TPU kernels
 (``fwd_pallas``, ``bwd_pallas``, ``fwd_capture_pallas``,
 ``bwd_capture_pallas``) become three CUDA sources: ``csrc/paint_fwd.cu``
 and ``csrc/paint_bwd.cu`` for the full sweeps, ``csrc/paint_capture.cu``
-for the two capture sweeps.
+for the two capture sweeps. The backward sweep and the capture sweeps run
+the same chain code, ``csrc/paint_sweep.cuh``.
 
 Layout. Sources are contiguous: per-target state is ``(B, N)`` and the
 per-row streams are ``(Dmax, B, N)``, which is also the public layout of
@@ -25,10 +26,13 @@ What bounds the kernels on the card: memory traffic (1 mismatch byte read
 and 4 to 8 bytes of float32 moved per cell, a handful of flops). Every
 target gets its own thread block, so each stream byte crosses device memory
 once; rows of one target are a dependent chain with one block-wide sum
-each. The full sweeps keep the state row in shared memory and rely on the B
-blocks in flight to hide the chain's latency; the capture sweeps, which
-move only the mismatch bytes, keep the state in registers and stream the
-rows ahead of the chain into shared memory (``csrc/paint_capture.cu``).
+each. The forward full sweep keeps the state row in shared memory and
+relies on the B blocks in flight to hide the chain's latency. The capture
+sweeps and the backward full sweep keep the state in registers and stream
+the mismatch rows ahead of the chain into shared memory; the backward
+sweep also holds the next row of alpha in registers and writes its output
+rows with streaming stores, so a row's bytes are in flight while the
+chain computes the one before (``csrc/paint_bwd.cu``).
 
 A CUDA tensor goes to the kernel or raises; only a CPU tensor takes the
 plain version. ``launches`` counts kernel launches per wrapper.
@@ -46,11 +50,12 @@ from . import _build
 LOWER_RESCALE = 1e-10
 UPPER_RESCALE = 1e10
 
-# A block of the full backward sweep keeps its target's state row, the kmask
-# row and one row of mismatch bytes in shared memory: 9 N bytes, of the
-# 232,448 a block of this card can use. The capture sweeps need less (the
-# state in registers; kmask and a ring of 2 to 8 rows in shared memory; they
-# run up to N = 26,624) and take the same limit.
+# The sweeps take N <= 25,827: nine bytes a source of the 232,448 bytes of
+# shared memory a block of this card can use, a limit every kernel meets.
+# The forward full sweep keeps its state and kmask rows in shared memory (8
+# N bytes); the other three keep the state in registers and kmask and a
+# ring of mismatch rows in shared memory, in blocks of up to 832 threads (N
+# <= 26,624).
 MAX_N = 232448 // 9
 
 launches = {"fwd": 0, "bwd": 0, "fwd_capture": 0, "bwd_capture": 0}
@@ -149,6 +154,32 @@ def capture_config(N: int, B: int, backward: bool, device=None) -> dict:
                 dynamic_shared_bytes=info[4], blocks_per_sm=info[5],
                 sms=info[6], waves=B / max(info[5] * info[6], 1),
                 registers=info[7], local_bytes=info[8])
+
+
+def bwd_config(N: int, B: int, device=None, *, emit_beta=False) -> dict:
+    """The launch configuration of the full backward sweep (B2) at width N
+    for B targets on the card, in the posterior mode (``emit_beta``: the
+    beta mode): as ``capture_config``, plus the alpha rows each thread
+    holds ahead in registers (1, or 0 where the registers cannot hold a row
+    and in the beta mode) and the bytes in flight a SM while the blocks
+    resident there compute a row: the mismatch rows of the ring past the
+    one being read and the alpha row held ahead, a target each."""
+    fn = _build.load("paint_bwd").paint_bwd_config
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 10)()
+    with torch.cuda.device(device if device is not None else "cuda"):
+        err = fn(int(N), _MODE_BETA if emit_beta else _MODE_POST, info)
+    _build.check(err, "paint_bwd (configuration)")
+    per_sm, sms = info[5], info[6]
+    resident = min(per_sm, -(-B // max(sms, 1)))
+    return dict(threads_per_block=info[0], sources_per_thread=info[1],
+                ring_rows=info[2], slot_bytes=info[3],
+                dynamic_shared_bytes=info[4], blocks_per_sm=per_sm, sms=sms,
+                waves=B / max(per_sm * sms, 1), registers=info[7],
+                local_bytes=info[8], alpha_rows_ahead=info[9],
+                bytes_in_flight_per_sm=resident * ((info[2] - 1) * N
+                                                   + info[9] * 4 * N))
 
 
 def _stream(dev):

@@ -37,10 +37,12 @@ def _jax_layout(D, mism, pfac, nxt, alpha0, beta_end, kmask):
     """Inputs in the port's layout ((Dmax, B, N) / (B, N) / (B, Dmax)) put
     in the JAX kernels' padded layout: (D (BP,), mism (Dmax, NP, BP),
     the pre-shifted (pfacm1, nxtm1, pfacp1, nxtp1) (Dmax, BP), alpha0,
-    beta_end, kmask (NP, BP)). Padded sources have kmask 0."""
+    beta_end, kmask (NP, BP)), the sources padded to a multiple of NP.
+    Padded sources have kmask 0."""
     Dmax, B, N = mism.shape
+    npad = -(-N // NP) * NP
     Dp = np.zeros(BP, np.int32); Dp[:B] = D
-    mp = np.zeros((Dmax, NP, BP), np.int8)
+    mp = np.zeros((Dmax, npad, BP), np.int8)
     mp[:, :N, :B] = mism.transpose(0, 2, 1)
     pfacT = np.zeros((Dmax, BP), np.float32); pfacT[:, :B] = pfac.T
     nxtT = np.zeros((Dmax, BP), np.float32); nxtT[:, :B] = nxt.T
@@ -49,7 +51,7 @@ def _jax_layout(D, mism, pfac, nxt, alpha0, beta_end, kmask):
               np.concatenate([pfacT[1:], z]), np.concatenate([nxtT[1:], z]))
 
     def pad(x):
-        out = np.zeros((NP, BP), np.float32)
+        out = np.zeros((npad, BP), np.float32)
         out[:N, :B] = x.T
         return out
     return Dp, mp, shifts, pad(alpha0), pad(beta_end), pad(kmask)
@@ -125,6 +127,87 @@ def test_bwd_plain_matches_pallas(seed, N, L, emit_beta):
         assert not topo_t[plan.D[b]:, b].any()
         assert not lstot_t[plan.D[b]:, b].any()
         assert topo_t[:plan.D[b], b].any()
+
+
+def _bwd_case(seed, N, Dmax, d_max=None, pfac_scale=0.01, density=0.4):
+    """Synthetic inputs of the full backward sweep in the port's layout, as
+    numpy arrays, for B = 6 targets: (D, mism (Dmax,B,N), pfac, nxt
+    (B,Dmax), beta_end, kmask (B,N), alphas (Dmax,B,N), lsf (Dmax,B)). D in
+    [2, d_max] with D[0] = 2 and D[1] = d_max."""
+    rng = np.random.default_rng(seed)
+    B = 6
+    d_max = Dmax if d_max is None else d_max
+    D = rng.integers(2, d_max + 1, B).astype(np.int32)
+    D[0], D[1] = 2, d_max
+    mism = (rng.random((Dmax, B, N)) < density).astype(np.int8)
+    pfac = ((rng.random((B, Dmax)) + 0.5) * pfac_scale).astype(np.float32)
+    nxt = (-rng.random((B, Dmax))).astype(np.float32)
+    beta_end = (rng.random((B, N)) + 0.5).astype(np.float32)
+    kmask = np.ones((B, N), np.float32)
+    kmask[np.arange(B), np.arange(B) % N] = 0.0
+    alphas = (rng.random((Dmax, B, N)) + 0.1).astype(np.float32)
+    lsf = (-rng.random((Dmax, B)) * 50.0).astype(np.float32)
+    return D, mism, pfac, nxt, beta_end, kmask, alphas, lsf
+
+
+def _rescaled_share(D, nxt, lsb):
+    """Share of the stepped rows whose backward-only logscale moved by more
+    than its step term, i.e. the rows the sweep rescaled."""
+    Dmax = lsb.shape[0]
+    j = np.arange(1, Dmax)[:, None]
+    stepped = j < D[None, :]
+    moved = np.abs(lsb[:-1] - lsb[1:] - nxt.T[1:]) > 1.0
+    return (moved & stepped).sum() / max(stepped.sum(), 1)
+
+
+@pytest.mark.parametrize("emit_beta", [False, True])
+@pytest.mark.parametrize("case,theta,rescaled", [
+    pytest.param(dict(seed=41, N=2, Dmax=16), THETA, 0.0, id="n2"),
+    pytest.param(dict(seed=43, N=3, Dmax=16), THETA, 0.0, id="n3"),
+    pytest.param(dict(seed=47, N=33, Dmax=24), THETA, 0.0, id="n33"),
+    pytest.param(dict(seed=53, N=8, Dmax=8, d_max=2), THETA, 0.0,
+                 id="d2-every-target"),
+    pytest.param(dict(seed=59, N=16, Dmax=16, pfac_scale=1e11), THETA, 1.0,
+                 id="rescale-every-step"),
+    pytest.param(dict(seed=61, N=16, Dmax=16, density=0.95), 0.999999, 0.4,
+                 id="rescale-every-other-step"),
+])
+def test_bwd_edges_match_pallas(case, theta, rescaled, emit_beta):
+    """The full backward sweep (both modes) against bwd_pallas (interpret
+    mode) on synthetic inputs at the edges of the CUDA kernel's blocks:
+    fewer sources than a warp's lanes, N a multiple of neither 4 nor 16,
+    every target at D = 2, and rows that rescale at every step (pfac 1e11)
+    or at about every other one (theta 0.999999 and dense mismatches: a
+    mismatch multiplies a source by 1e6). Both take the same alphas and
+    lsf; rows at and past D are exactly zero."""
+    D, mism, pfac, nxt, beta_end, kmask, alphas, lsf = _bwd_case(**case)
+    Dmax, B, N = mism.shape
+    Dp, mp, shifts, _, be, km = _jax_layout(D, mism, pfac, nxt, beta_end,
+                                            beta_end, kmask)
+    ap = np.zeros((Dmax,) + mp.shape[1:], np.float32)
+    ap[:, :N, :B] = alphas.transpose(0, 2, 1)
+    lp = np.zeros((Dmax, BP), np.float32); lp[:, :B] = lsf
+    j = jnp.asarray
+    topo_k, lstot_k = jk.bwd_pallas(
+        j(Dp[None, :]), j(be), j(km), j(mp), j(shifts[2]), j(shifts[3]),
+        j(ap), j(lp), theta=theta, interpret=True, emit_beta=emit_beta)
+    topo_k = np.asarray(topo_k)[:, :N, :B].transpose(0, 2, 1)
+    lstot_k = np.asarray(lstot_k)[:, :B]
+
+    t = torch.from_numpy
+    topo_t, lstot_t = tk.bwd(t(D), t(beta_end), t(kmask), t(mism), t(pfac),
+                             t(nxt), t(alphas), t(lsf), theta=theta,
+                             emit_beta=emit_beta)
+    topo_t, lstot_t = topo_t.numpy(), lstot_t.numpy()
+    np.testing.assert_allclose(topo_t, topo_k, rtol=1e-5, atol=1e-30)
+    np.testing.assert_allclose(lstot_t, lstot_k, rtol=0, atol=1e-4)
+    past = np.arange(Dmax)[:, None] >= D[None, :]
+    assert not topo_t[past].any() and not lstot_t[past].any()
+    assert all(topo_t[:D[b], b].any() for b in range(B))
+    lsb = tk.bwd_plain(t(D), t(beta_end), t(kmask), t(mism), t(pfac), t(nxt),
+                       t(alphas), t(lsf), theta=theta, emit_beta=True)[1]
+    share = _rescaled_share(D, nxt, lsb.numpy())
+    assert share >= rescaled and (rescaled > 0 or share < 0.5)
 
 
 def _capture_case(kind, seed, N, L):
@@ -258,9 +341,9 @@ def test_wrappers_refuse_wrong_inputs():
 
 
 def test_wrappers_refuse_rows_past_shared_memory():
-    """A target's rows live in one block's shared memory (9 N bytes of the
-    card's 232,448): N past that is refused with a clear error, N = 16384,
-    the merge scan's limit, is inside."""
+    """The sweeps take N <= 25,827 (nine bytes a source of the card's
+    232,448 bytes of shared memory a block): N past that is refused with a
+    clear error, N = 16384, the merge scan's limit, is inside."""
     assert 16384 <= tk.MAX_N == 25827
     N = tk.MAX_N + 1
     mism = torch.zeros((2, 1, N), dtype=torch.int8)
