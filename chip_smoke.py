@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``relate_tpu_torch/csrc``, holds every kernel
-against its plain PyTorch version on the card, drives the port's three main
-paths through ``relate_tpu_torch.pipeline.relate`` and checks what they
-wrote:
+against its plain PyTorch version on the card, drives the port's five main
+paths through ``relate_tpu_torch.pipeline.relate`` and its CLI and checks
+what they wrote:
 
 - ``run_all`` (``Relate --mode All``: MakeChunks -> Paint -> BuildTopology
   -> FindEquivalentBranches -> InferBranchLengths -> CombineSections ->
@@ -15,7 +15,15 @@ wrote:
 - ``run_all`` at N = 2048 and L = 8192: the width at which the merge scan
   takes its large dense kernel;
 - MakeChunks -> Paint -> BuildTopology at N = 1024 and L = 8192, the width
-  of the merge-scan kernel that also emits the clade rows.
+  of the merge-scan kernel that also emits the clade rows;
+- ``run_all`` at N = 1024 and L = 8192 with sample ages (128 ancient
+  haplotypes, 200 to 4,000 generations): the host topology builder, whose
+  trees are all built by the age-aware scan (PyTorch ops), and the MCMC with
+  ancient samples; the trees must hold the tips at their ages;
+- MakeChunks -> Paint -> BuildTopology ``--anc_allele_unknown`` at N = 1024
+  through the stage modes of ``pipeline/cli.py``: the host topology builder
+  with symmetrised distances and flip coins, every tree built by the merge
+  scan with clade rows.
 
 Phases, each printing one JSON line: ``device``, ``build``, ``inputs``,
 ``kernels`` (the incremental merge scan also at N = 2 ... 1000, the sizes
@@ -25,7 +33,10 @@ of their cooperative launch; the backward sweep and the capture sweeps
 with the time a row of the longest chain takes, their launch configuration
 (the backward sweep's with its bytes in flight a SM) and the share of rows
 the full plain sweep rescales), ``main_path`` (N = 1024), ``run_all``
-(N = 2048), ``run_all_n4096``, ``cpu_vs_card``; then the ``{"kernels": [...]}`` line,
+(N = 2048), ``run_all_n4096``, ``run_all_ancient`` (with the age-aware
+scan's ms a build and the kernels it launches), ``anc_unknown``,
+``cpu_vs_card`` (N = 64, with two sections through the host topology
+builder); then the ``{"kernels": [...]}`` line,
 the card's name and power limit as ``nvidia-smi`` gives them, and the result
 line. The launch counts are set to 0 just before each path and read just
 after it. Any phase that fails ends the run with a non-zero exit code. Needs
@@ -1137,12 +1148,80 @@ def phase_main_path(G, bp, memory_gb, kernels):
         fail("main_path: the N = 1024 path launched another merge scan")
 
 
-def phase_run_all(G, bp, memory_gb, kernels, phase, scan):
+def ancient_ages(N, n_old=128):
+    """Sample ages in generations: the last ``n_old`` haplotypes (two
+    haplotypes of one diploid sample sharing an age) spaced evenly from 200
+    to 4,000; the others 0."""
+    ages = np.zeros(N)
+    ages[N - n_old:] = np.repeat(np.linspace(200.0, 4000.0, n_old // 2), 2)
+    return ages
+
+
+def check_ancient_trees(phase, anc, ages):
+    """With sample ages: every node's age (coordinates from the sample ages
+    and the branch lengths) is at least both children's, every ancient
+    leaf's parent is older than the leaf, and a node's age taken up from its
+    left child agrees with the one from its right child (the chains held
+    the tips at their ages). Returns the worst relative disagreement."""
+    N = anc.N
+    old = np.nonzero(ages > 0)[0]
+    worst = 0.0
+    for mt in anc.seq:
+        tr = mt.tree
+        coords = tr.coordinates(ages)
+        par = tr.parent[:-1]
+        if (coords[par] < coords[:-1]).any():
+            fail(f"{phase}: tree at {mt.pos} has a node younger than a "
+                 "child")
+        if not (coords[tr.parent[old]] > ages[old]).all():
+            fail(f"{phase}: tree at {mt.pos} has an ancient leaf whose "
+                 "parent is not older than it")
+        bl = tr.branch_length
+        via = np.zeros(len(tr.parent))
+        via[:N] = ages
+        for v in range(N, len(tr.parent)):     # children before parents
+            a, b = tr.child_left[v], tr.child_right[v]
+            via[v] = via[a] + bl[a]
+            worst = max(worst, abs(via[v] - via[b] - bl[b]) / via[v])
+    if worst > 1e-2:
+        fail(f"{phase}: node ages from the two children disagree by "
+             f"{worst:.3g} (relative): the chains did not hold the tips at "
+             "their ages")
+    return worst
+
+
+def age_scan_cost(N, ages):
+    """One age-aware tree build at width N on the card (the PyTorch-op
+    scan with a clade prior): ms a build over 3 calls (CUDA events), and the
+    kernels one build launches with the device's busy share
+    (``torch.profiler``)."""
+    from relate_tpu_torch.core import treebuilder as tb
+    g = torch.Generator(device=DEV)
+    g.manual_seed(SEED)
+    d = torch.rand((N, N), generator=g, device=DEV)
+    dcf = torch.rand((N, N), generator=g, device=DEV)
+    thr, thr_cf = tb.thresholds(THETA)
+    a = torch.as_tensor(ages, dtype=torch.float32, device=DEV)
+    grid = torch.as_tensor(tb.age_grid(ages, 3e4).astype(np.float32),
+                           device=DEV)
+
+    def build():
+        tb.quick_build_scan_ages(d, dcf, True, thr, thr_cf, 5, a, grid)
+    ms = time_ms(build, 3)
+    prof = profiled(build)
+    return dict(N=N, ms=round(ms, 3), us_a_step=round(1e3 * ms / (N - 1), 2),
+                kernels_a_build=prof["device_kernels"],
+                device_busy_share=prof["device_busy_share"])
+
+
+def phase_run_all(G, bp, memory_gb, kernels, phase, scan, ages=None):
     """``run_all`` (Relate --mode All) through the port's entry point, with
     every launch count set to 0 just before and read just after, and the
     checks on the ``.anc``/``.mut`` it wrote. ``scan`` names the merge-scan
     kernel that this width must launch, once for every tree it builds, and
-    the other two must not be launched at all."""
+    the other two must not be launched at all. With ``ages`` (sample ages
+    in generations) every tree is built by the age-aware scan, no merge-scan
+    kernel is launched, and the trees must hold the ancient tips."""
     from relate_tpu_torch.io import ancmut
     from relate_tpu_torch.io.chunking import ArtifactStore
     from relate_tpu_torch.pipeline import relate
@@ -1157,6 +1236,11 @@ def phase_run_all(G, bp, memory_gb, kernels, phase, scan):
         synth.write_flat_map(os.path.join(tmp, "map.txt"), int(bp[-1]))
         t_inputs = time.time() - t0
 
+        ages_path = None
+        if ages is not None:
+            ages_path = os.path.join(tmp, "ages.txt")
+            np.savetxt(ages_path, ages)
+
         reset_counts()
         del STAGES[:]
         out = os.path.join(tmp, "out")
@@ -1164,7 +1248,7 @@ def phase_run_all(G, bp, memory_gb, kernels, phase, scan):
         relate.run_all(prefix + ".haps", prefix + ".sample",
                        os.path.join(tmp, "map.txt"), out, seed=1,
                        memory_gb=memory_gb, theta=THETA, cleanup=False,
-                       verbose=False, device=DEV)
+                       verbose=False, sample_ages_path=ages_path, device=DEV)
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = read_counts()
@@ -1212,6 +1296,16 @@ def phase_run_all(G, bp, memory_gb, kernels, phase, scan):
     if not any(m["age_end"] > 0 for m in mapped):
         fail(f"{phase}: no mutation has an age")
     n_not_mapping = sum(m["is_not_mapping"] for m in muts)
+    extra = {}
+    if ages is not None:
+        # the text .anc writes the ages with six decimals
+        if anc.sample_ages is None or len(anc.sample_ages) != N or \
+                not np.allclose(anc.sample_ages, ages, rtol=0, atol=1e-6):
+            fail(f"{phase}: the .anc does not carry the {N} sample ages")
+        extra = dict(
+            ancient_haplotypes=int((ages > 0).sum()),
+            node_age_disagreement_max=check_ancient_trees(phase, anc, ages),
+            age_scan=age_scan_cost(N, ages))
 
     mcmc_stats = [m for r in STAGES for m in r.get("mcmc", [])]
     feb = [m for r in STAGES for m in r.get("feb", [])]
@@ -1220,7 +1314,7 @@ def phase_run_all(G, bp, memory_gb, kernels, phase, scan):
                       for m in r.get("topology", []))
     add_launches(kernels, f"run_all_n{N}", counts)
     needed = ("paint_fwd", "paint_bwd", "paint_fwd_capture",
-              "paint_bwd_capture", scan)
+              "paint_bwd_capture") + ((scan,) if scan else ())
     missing = [n for n in needed if counts[n] <= 0]
     scans = ("merge_scan", "merge_scan_large", "merge_scan_inc")
     emit(phase, N=N, L=L, windows=W,
@@ -1240,15 +1334,84 @@ def phase_run_all(G, bp, memory_gb, kernels, phase, scan):
              max=max(totals)),
          not_mapping=n_not_mapping, not_mapping_share=n_not_mapping / L,
          flipped=sum(m["flipped"] for m in muts),
-         peak_device_memory_gb=round(peak / 1e9, 3))
+         peak_device_memory_gb=round(peak / 1e9, 3), **extra)
     if missing:
         fail(f"{phase}: kernels never launched: {missing}")
     if any(counts[n] for n in scans if n != scan):
         fail(f"{phase}: the N = {N} path launched another merge scan than "
              f"{scan}")
-    if counts[scan] != tree_builds or tree_builds < len(anc.seq):
-        fail(f"{phase}: {counts[scan]} merge scans for {tree_builds} tree "
+    launched = counts[scan] if scan else tree_builds
+    if launched != tree_builds or tree_builds < len(anc.seq):
+        fail(f"{phase}: {launched} merge scans for {tree_builds} tree "
              f"builds and {len(anc.seq)} trees")
+
+
+def phase_anc_unknown(G, bp, memory_gb, kernels):
+    """MakeChunks -> Paint -> BuildTopology --anc_allele_unknown at N = 1024
+    through the stage modes of ``pipeline/cli.py``, with every launch count
+    set to 0 just before and read just after: the host topology builder,
+    whose every tree build launches the merge scan with clade rows."""
+    from relate_tpu_torch.io import ancmut
+    from relate_tpu_torch.io.chunking import ArtifactStore
+    from relate_tpu_torch.pipeline import cli
+    from relate_tpu_torch.utils import synth
+    from relate_tpu_torch.utils.trace import STAGES
+
+    L, N = G.shape
+    with tempfile.TemporaryDirectory(prefix="relate_smoke_") as tmp:
+        prefix = os.path.join(tmp, "panel")
+        synth.write_haps_sample(G, bp, prefix)
+        synth.write_flat_map(os.path.join(tmp, "map.txt"), int(bp[-1]))
+        out = os.path.join(tmp, "store")
+        common = ["-o", out, "--device", DEV]
+        reset_counts()
+        del STAGES[:]
+        for argv in (["--mode", "MakeChunks", "--haps", prefix + ".haps",
+                      "--sample", prefix + ".sample", "--map",
+                      os.path.join(tmp, "map.txt"), "--memory",
+                      str(memory_gb)],
+                     ["--mode", "Paint"],
+                     ["--mode", "BuildTopology", "--anc_allele_unknown"]):
+            if cli.main(argv + common) != 0:
+                fail(f"anc_unknown: {' '.join(argv[:2])} failed")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak = max(r.get("dev_peak_mb", 0.0) for r in STAGES) * 1e6
+        store = ArtifactStore(out)
+        ch = store.load_chunk(0)
+        bounds = ch.windows.boundaries
+        W = len(bounds) - 1
+        if ch.N != N or W < 3:
+            fail(f"anc_unknown: N = {ch.N}, W = {W}; wanted N = {N}, W >= 3")
+        sections, flipped = [], 0
+        for w in range(W):
+            end = (bounds[w + 1] - 1) if w < W - 1 else ch.L - 1
+            sections.append(check_section(store, w, N, end - bounds[w] + 1))
+            flipped += sum(m.flipped for m in ancmut.read_mut_short(
+                store.path("chunk_0", f"muts_{w}.mut")))
+    tree_builds = sum(m["tree_builds"] for r in STAGES
+                      for m in r.get("topology", []))
+    trees = sum(x["trees"] for x in sections)
+    add_launches(kernels, f"anc_unknown_n{N}", counts)
+    needed = ("paint_fwd", "paint_bwd", "paint_fwd_capture",
+              "paint_bwd_capture", "merge_scan")
+    missing = [n for n in needed if counts[n] <= 0]
+    emit("anc_unknown", N=N, L=L, windows=W,
+         boundaries=[int(b) for b in bounds], memory_gb=memory_gb,
+         stages=[{k: r.get(k) for k in ("stage", "wall_s", "cpu_s",
+                                         "dev_peak_mb")}
+                 for r in STAGES],
+         launches=counts, trees=trees, tree_builds=tree_builds,
+         sections=sections, flipped=flipped,
+         peak_device_memory_gb=round(peak / 1e9, 3))
+    if missing:
+        fail(f"anc_unknown: kernels never launched: {missing}")
+    if counts["merge_scan"] != tree_builds or tree_builds < trees \
+            or counts["merge_scan_large"] or counts["merge_scan_inc"]:
+        fail(f"anc_unknown: {counts['merge_scan']} merge scans for "
+             f"{tree_builds} tree builds and {trees} trees")
+    if flipped == 0:
+        fail("anc_unknown: no SNP was mapped flipped")
 
 
 def profiled(fn, named=()):
@@ -1401,7 +1564,9 @@ def phase_cpu_vs_card():
     """All seven stages at N = 64 on the card (kernels) and on the CPU
     (plain versions) from the same files, through the entry points that
     ``run_all`` calls, stage by stage so that what each stage wrote can be
-    held against the other device's."""
+    held against the other device's; then the first section again through
+    the host topology builder, with an unknown ancestral allele and (in a
+    store of its own) with 16 ancient haplotypes."""
     from relate_tpu_torch.io import ancmut
     from relate_tpu_torch.io.chunking import ArtifactStore
     from relate_tpu_torch.pipeline import relate
@@ -1445,10 +1610,31 @@ def phase_cpu_vs_card():
             relate.finalize(store, final)
             totals = [float(mt.tree.branch_length.sum())
                       for mt in ancmut.read_anc_text(final + ".anc").seq]
+
+            def host_section_trees(st):
+                return len(ancmut.read_anc_bin(
+                    st.path("chunk_0", "trees_0.anc")).seq)
+            relate.build_topology(store, 0, seed=1, theta=THETA,
+                                  ancestral_state=False, first_section=0,
+                                  last_section=0, device=dev)
+            host = [host_section_trees(store)]
+            ages_path = os.path.join(tmp, "ages.txt")
+            np.savetxt(ages_path, ancient_ages(N, 16))
+            sa = os.path.join(tmp, "store_ages_" + dev)
+            relate.make_chunks(prefix + ".haps", prefix + ".sample",
+                               os.path.join(tmp, "map.txt"), sa,
+                               memory_gb=0.0008, sample_ages_path=ages_path,
+                               device=dev)
+            ages_store = ArtifactStore(sa)
+            relate.paint(ages_store, 0, theta=THETA, device=dev)
+            relate.build_topology(ages_store, 0, seed=1, theta=THETA,
+                                  first_section=0, last_section=0,
+                                  device=dev)
+            host.append(host_section_trees(ages_store))
             out[dev] = (W, [{k: z[k] for k in z.files} for z in cps], trees,
-                        built, matched, totals)
-    (Wc, cps_c, trees_c, built_c, matched_c, tot_c) = out[DEV]
-    (Wh, cps_h, trees_h, built_h, matched_h, tot_h) = out["cpu"]
+                        built, matched, totals, host)
+    (Wc, cps_c, trees_c, built_c, matched_c, tot_c, host_c) = out[DEV]
+    (Wh, cps_h, trees_h, built_h, matched_h, tot_h, host_h) = out["cpu"]
     if Wc != Wh or Wc < 2:
         fail(f"cpu_vs_card: windows {Wc} on the card, {Wh} on the CPU")
     worst = 0.0
@@ -1466,14 +1652,18 @@ def phase_cpu_vs_card():
                 fail(f"cpu_vs_card: {ls} differs by {tot}")
             worst = max(worst, float(np.abs(na - nb).max()))
     note = "equal"
+    # float32 sums are taken in another order on the card, and a merge list
+    # is discrete, so one rebuild may be accepted on one device and reverted
+    # on the other; more than a few is a fault
+    for what, a, b in (("", trees_c, trees_h),
+                       (" (host builder: unknown ancestral allele, ages)",
+                        host_c, host_h)):
+        if a != b:
+            gap = max(abs(x - y) for x, y in zip(a, b))
+            if gap > max(3, 0.05 * max(b)):
+                fail(f"cpu_vs_card: tree counts{what} {a} on the card, "
+                     f"{b} on the CPU")
     if trees_c != trees_h:
-        # float32 sums are taken in another order on the card, and a merge
-        # list is discrete, so one rebuild may be accepted on one device
-        # and reverted on the other; more than a few is a fault
-        gap = max(abs(x - y) for x, y in zip(trees_c, trees_h))
-        if gap > max(3, 0.05 * max(trees_h)):
-            fail(f"cpu_vs_card: tree counts {trees_c} on the card, "
-                 f"{trees_h} on the CPU")
         note = ("differ within the accept/revert noise of summation order "
                 "(float32 posterior rows feed a discrete merge list)")
     # the matcher is deterministic and integer-valued: where BuildTopology
@@ -1506,6 +1696,7 @@ def phase_cpu_vs_card():
     emit("cpu_vs_card", N=N, L=int(G.shape[0]), windows=Wc,
          checkpoint_max_abs_err_normalised=worst, trees_card=trees_c,
          trees_cpu=trees_h, tree_counts=note,
+         host_builder_trees_card=host_c, host_builder_trees_cpu=host_h,
          build_topology_bytes_equal=same_built,
          find_equivalent_branches_bytes_equal=matched_c == matched_h,
          total_branch_length=length)
@@ -1515,7 +1706,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="kernels,main_path,run_all,run_all_n4096,"
-                            "cpu_vs_card")
+                            "run_all_ancient,anc_unknown,cpu_vs_card")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -1533,7 +1724,7 @@ def main():
     memory_auto = auto_memory_gb()
     panels = {}
     uses_panels = {"kernels", "main_path", "run_all", "run_all_n4096",
-                   "profile"}
+                   "run_all_ancient", "anc_unknown", "profile"}
     for N in (N_HAP, N_LARGE, N_INC) if phases & uses_panels else ():
         G, bp = make_panel(N, L_SNPS_INC if N == N_INC else L_SNPS)
         memory_gb = memory_auto
@@ -1563,6 +1754,13 @@ def main():
     if "run_all_n4096" in phases:
         phase_run_all(*panels[N_INC], kernels, "run_all_n4096",
                       "merge_scan_inc")
+        torch.cuda.empty_cache()
+    if "run_all_ancient" in phases:
+        phase_run_all(*panels[N_HAP], kernels, "run_all_ancient", None,
+                      ages=ancient_ages(N_HAP))
+        torch.cuda.empty_cache()
+    if "anc_unknown" in phases:
+        phase_anc_unknown(*panels[N_HAP], kernels)
         torch.cuda.empty_cache()
     if "cpu_vs_card" in phases:
         phase_cpu_vs_card()

@@ -75,14 +75,15 @@ class DistanceAssembler:
     """Stateful per-window distance assembly, mirroring DistanceMeasure."""
 
     def __init__(self, G: np.ndarray, rpos: np.ndarray,
-                 nxt: np.ndarray | None = None):
+                 nxt: np.ndarray | None = None, nxt_start: int = 0):
         self.G = G
         self.rpos = np.asarray(rpos, dtype=np.float64)
         self.L, self.N = G.shape
-        # optional precomputed (L, N) next-derived-rpos table
-        # (topology_device.next_derived_rpos); avoids O(L) per-target
-        # np.nonzero scans in matrix_inputs
+        # optional precomputed next-derived-rpos rows from SNP nxt_start on
+        # (topology_device.next_derived_rpos: all L rows); avoids O(L)
+        # per-target np.nonzero scans in matrix_inputs
         self.nxt = nxt
+        self.nxt_start = nxt_start
 
     def init_state(self, plan, snp: int) -> RowState:
         """Row/rpos state at window entry (DistanceMeasure::Assign /
@@ -122,7 +123,7 @@ class DistanceAssembler:
         rpos_next = state.rpos_next.copy()
         stale = ~is_exact & (rpos_next <= state.rpos_prev)
         if self.nxt is not None:
-            rpos_next[stale] = self.nxt[snp][stale]
+            rpos_next[stale] = self.nxt[snp - self.nxt_start][stale]
         else:
             for n in np.nonzero(stale)[0]:
                 nd = np.nonzero(G[snp:, n])[0]

@@ -58,11 +58,16 @@ launches = {"merge_scan": 0, "merge_scan_large": 0, "merge_scan_inc": 0}
 _M32 = 0xFFFFFFFF
 
 
-def _tie_hash(seed: int, t: int, lo: torch.Tensor, hi: torch.Tensor):
-    """Symmetric per-step tie-break hash, 32-bit wrap-around arithmetic done
-    in int64 and masked (logical shifts by construction)."""
-    h = (lo * 2654435769 + hi * 2246822507) & _M32
-    h = h ^ ((seed * 747796405 + t * 374761393) & _M32)
+def _tie_pairs(lo: torch.Tensor, hi: torch.Tensor):
+    """The per-pair term of the tie-break hash (the same at every step)."""
+    return (lo * 2654435769 + hi * 2246822507) & _M32
+
+
+def _tie_hash(seed: int, t: int, pairs: torch.Tensor):
+    """Symmetric per-step tie-break hash of ``pairs = _tie_pairs(min, max)``,
+    32-bit wrap-around arithmetic done in int64 and masked (logical shifts
+    by construction)."""
+    h = pairs ^ ((seed * 747796405 + t * 374761393) & _M32)
     h = h ^ (h >> 15)
     h = (h * 739213477) & _M32
     h = h ^ (h >> 12)
@@ -90,8 +95,8 @@ def merge_scan_plain(d, dcf, use_cf, threshold, threshold_cf, seed,
     inf = torch.tensor(INF, dtype=torch.float32, device=dev)
     ids = torch.arange(N, device=dev, dtype=torch.int64)
     row_ids, col_ids = ids[:, None], ids[None, :]
-    lo = torch.minimum(row_ids, col_ids)
-    hi = torch.maximum(row_ids, col_ids)
+    pairs = _tie_pairs(torch.minimum(row_ids, col_ids),
+                       torch.maximum(row_ids, col_ids))
     offdiag = row_ids != col_ids
     flat_ids = row_ids * N + col_ids
     active = torch.ones(N, dtype=torch.bool, device=dev)
@@ -117,7 +122,7 @@ def merge_scan_plain(d, dcf, use_cf, threshold, threshold_cf, seed,
             eff = eff_mut
         else:
             eff = torch.where(mask2, sym, inf)
-        tie = _tie_hash(seed, t, lo, hi)
+        tie = _tie_hash(seed, t, pairs)
         m = eff.min()
         tsel = torch.where(eff == m, tie, inf)
         best = tsel.min()

@@ -13,6 +13,8 @@ or stage by stage, on one store:
   python -m relate_tpu_torch.pipeline.cli --mode Finalize -o final --store out
 
 The stages run on the CUDA card; ``--device cpu`` asks for the host.
+``--sample_ages`` (All, MakeChunks) and ``--anc_allele_unknown``
+(BuildTopology) send BuildTopology to the host topology builder.
 """
 from __future__ import annotations
 

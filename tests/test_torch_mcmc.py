@@ -9,7 +9,10 @@ fuses and orders a few of them otherwise). The Kahan compensation ``scomp``
 is the rounding residue of ``ssum`` and as such noise of the last bit: the
 compensated sum ``ssum - scomp`` is what is compared.
 (b) Invariants of the state after 200 iterations of the port's own draws.
-The distributional comparison and ``run_mcmc`` are in
+The chains run with contemporary samples and with the ancient samples of
+``tests/test_ancient.py`` (``use_ages``: the lineage profile follows the
+sorted order; the start state is ``_pseudo_order`` / ``_initial_coords``,
+which are bit-exact). The distributional comparison and ``run_mcmc`` are in
 ``test_torch_mcmc_posterior.py``.
 """
 import numpy as np
@@ -29,17 +32,22 @@ N = 12
 M = 2 * N - 1
 L = 200
 INT_FIELDS = ("order", "sorted_idx", "cprop")
+# the ancient tips of tests/test_ancient.py, in generations; Ne = 3e4
+AGES = np.array([0.0] * 8 + [500.0, 500.0, 2000.0, 3500.0])
+NE = 3e4
 
 
-def _tree_batch(B, seed=3):
-    """The tree batch of tests/test_mcmc_sweep.py."""
+def _tree_batch(B, seed=3, sample_ages=None):
+    """The tree batch of tests/test_mcmc_sweep.py (built with
+    ``sample_ages`` where given)."""
     rng = np.random.default_rng(seed)
     trees = []
     for _ in range(B):
         d = rng.random((N, N)).astype(np.float32)
         np.fill_diagonal(d, 1e9)
         t = jtb.quick_build(d + d.T, theta=0.001,
-                            seed=int(rng.integers(1 << 30)))
+                            seed=int(rng.integers(1 << 30)),
+                            sample_ages=sample_ages)
         t.num_events = rng.poisson(2.0, M).astype(np.float32)
         t.SNP_begin = np.zeros(M, np.int32)
         t.SNP_end = np.full(M, L, np.int32)
@@ -85,6 +93,17 @@ def _initial_state(cl, cr, seed):
     return coords0, order0, sidx0
 
 
+def _ancient_state(trees):
+    """The JAX package's start state with the ancient samples."""
+    ages_n = AGES / NE
+    out = [jm._pseudo_order(t, ages_n) for t in trees]
+    sidx0 = np.stack([si for si, _ in out])
+    order0 = np.stack([o for _, o in out])
+    coords0 = np.stack([jm._initial_coords(si, N, ages_n)
+                        for si in sidx0]).astype(np.float32)
+    return coords0, order0, sidx0
+
+
 def _static_across(st):
     a = np.asarray
     return convert.chain_static_from_numpy(
@@ -116,20 +135,23 @@ def _assert_same_state(js, ts, what):
         err_msg=f"{what}: compensated sum")
 
 
-@pytest.fixture(scope="module", params=[False, True],
-                ids=["constNe", "piecewise"])
+@pytest.fixture(scope="module", params=[
+    (False, False), (True, False), (False, True), (True, True)],
+    ids=["constNe", "piecewise", "ancient", "ancient-piecewise"])
 def chains(request):
     """A generic state: 40 iterations of the JAX chain from its initial
     state, then carried across."""
-    use_vp = request.param
-    trees = _tree_batch(8)
+    use_vp, use_ages = request.param
+    trees = _tree_batch(8, sample_ages=AGES if use_ages else None)
     st, cl, cr = _chain_setup(trees, use_vp)
-    s = jm.init_chain_state(*_initial_state(cl, cr, 7))
-    blk = jm._Block(N, M, use_vp)
+    s = jm.init_chain_state(*(_ancient_state(trees) if use_ages
+                              else _initial_state(cl, cr, 7)))
+    blk = jm._Block(N, M, use_vp, use_ages=use_ages)
     s = blk.run(st, s, jax.random.PRNGKey(5), 40, True)
     tst = _static_across(st)
-    return dict(use_vp=use_vp, st=st, s=s, aux=jm.sweep_aux(st), blk=blk,
-                tst=tst, ts=_state_across(s), taux=tm.sweep_aux(tst))
+    return dict(use_vp=use_vp, use_ages=use_ages, st=st, s=s,
+                aux=jm.sweep_aux(st), blk=blk, tst=tst, ts=_state_across(s),
+                taux=tm.sweep_aux(tst))
 
 
 @pytest.mark.parametrize("phase", range(4))
@@ -139,10 +161,10 @@ def test_age_sweep_matches_jax(chains, phase):
     r = np.random.default_rng(10 + phase)
     u1 = r.random((B, M)).astype(np.float32)
     u2 = r.random((B, M)).astype(np.float32)
-    js = jm.make_sweep_fn(N, M, c["use_vp"])(
+    js = jm.make_sweep_fn(N, M, c["use_vp"], c["use_ages"])(
         c["st"], c["s"], c["aux"], phase, jnp.asarray(u1), jnp.asarray(u2))
     ts = tm.age_sweep(c["tst"], c["ts"], c["taux"], phase, _t(u1), _t(u2),
-                      c["use_vp"])
+                      c["use_vp"], use_ages=c["use_ages"])
     _assert_same_state(js, ts, f"age sweep phase {phase}")
     assert (np.asarray(js.coords) != np.asarray(c["s"].coords)).any()
 
@@ -172,7 +194,7 @@ def _step_draws(key, B):
 def test_single_step_matches_jax(chains, do_ue):
     c = chains
     B = c["ts"].coords.shape[0]
-    jstep = jm.make_step_fn(N, M, c["use_vp"])
+    jstep = jm.make_step_fn(N, M, c["use_vp"], use_ages=c["use_ages"])
     # keys whose global coin picks this proposal; several, so that accepted
     # and rejected moves of it are both met
     keys = [k for k in (jax.random.PRNGKey(i) for i in range(60))
@@ -183,7 +205,7 @@ def test_single_step_matches_jax(chains, do_ue):
         coin, un, u1s, u2s = _step_draws(key, B)
         js = jstep(c["st"], c["s"], key, True)
         ts = tm.step(c["tst"], c["ts"], coin, un, u1s, u2s, c["use_vp"],
-                     True)
+                     True, use_ages=c["use_ages"])
         _assert_same_state(js, ts, f"step do_ue={do_ue}")
         moved += int((np.asarray(js.coords)
                       != np.asarray(c["s"].coords)).any(axis=1).sum())
@@ -216,10 +238,48 @@ def test_twenty_iterations_match_jax(chains):
         js = jit_iteration(js, i)
         ts = tm.iteration(c["tst"], c["taux"], ts, i,
                           _iteration_draws(key, i, B), c["use_vp"], True,
-                          _t(active))
+                          _t(active), use_ages=c["use_ages"])
     _assert_same_state(js, ts, "20 iterations")
     assert torch.equal(ts.coords[2], c["ts"].coords[2])
     assert float(ts.count[2]) == float(c["ts"].count[2])
+
+
+def test_ancient_start_state_is_bit_exact():
+    """``_pseudo_order`` and ``_initial_coords`` on the fixture of
+    tests/test_ancient.py and on the ancient tree batch: equal arrays."""
+    rng = np.random.default_rng(7)
+    d = rng.random((N, N)).astype(np.float32)
+    fixture = jtb.quick_build(d, theta=0.01, seed=3, sample_ages=AGES,
+                              Ne=NE)
+    ages_n = AGES / NE
+    for t in [fixture] + _tree_batch(4, seed=9, sample_ages=AGES):
+        tt = convert.tree_from_numpy(t.parent, t.child_left, t.child_right)
+        si_j, o_j = jm._pseudo_order(t, ages_n)
+        si_t, o_t = tm._pseudo_order(tt, ages_n)
+        assert np.array_equal(si_j, si_t) and np.array_equal(o_j, o_t)
+        assert si_t.dtype == o_t.dtype == np.int32
+        c_j = jm._initial_coords(si_j, N, ages_n)
+        c_t = tm._initial_coords(si_t, N, ages_n)
+        assert np.array_equal(c_j, c_t)
+        assert np.array_equal(c_t[:N], ages_n)
+        assert np.array_equal(jm._initial_coords(si_j, N),
+                              tm._initial_coords(si_t, N))
+
+
+def test_lineage_profile_from_the_sorted_order():
+    """``_kc2_from_sorted``: the JAX function's values; where the leaves
+    sit first, ``kc2_pos`` from the last leaf on (the intervals before it
+    are empty)."""
+    trees = _tree_batch(3, sample_ages=AGES)
+    sidx = np.stack([jm._pseudo_order(t, AGES / NE)[0] for t in trees])
+    want = np.stack([np.asarray(jm._kc2_from_sorted(jnp.asarray(si), N))
+                     for si in sidx])
+    got = tm._kc2_from_sorted(torch.from_numpy(sidx.astype(np.int64)), N)
+    assert np.array_equal(got.numpy(), want)
+    nl = np.concatenate([np.full(N, N), 2 * N - 1 - np.arange(N, M)])
+    first = tm._kc2_from_sorted(torch.arange(M)[None, :], N)
+    assert np.array_equal(first[0, N - 1:].numpy(),
+                          (nl * (nl - 1) / 2.0)[N - 1:].astype(np.float32))
 
 
 @pytest.mark.parametrize("use_vp", [False, True],

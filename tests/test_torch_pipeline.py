@@ -37,6 +37,7 @@ from relate_tpu_torch.pipeline import cli as tcli
 from relate_tpu_torch.pipeline import relate as trelate
 from relate_tpu_torch.utils import synth as tsynth
 from relate_tpu_torch.utils import trace as ttrace
+from test_torch_treebuilder import pallas_scan, port_ties
 
 torch.set_num_threads(1)
 
@@ -219,17 +220,94 @@ def test_cli_stages_and_cache_handoff(stores, tmp_path):
 
 
 def test_unported_options_raise(stores):
-    with pytest.raises(NotImplementedError, match="host"):
-        trelate.build_topology(stores["tstore"], 0, device="cpu",
-                               ancestral_state=False)
+    """PostProcess is not ported; ``run_all`` refuses it before it writes
+    anything. (An unknown ancestral allele and sample ages run: the two
+    tests below.)"""
     prefix, tmp = stores["prefix"], stores["tmp"]
     args = (prefix + ".haps", prefix + ".sample", str(tmp / "map.txt"),
             str(tmp / "never"))
     with pytest.raises(NotImplementedError, match="PostProcess"):
         trelate.run_all(*args, device="cpu", postprocess=True)
-    with pytest.raises(NotImplementedError, match="host topology builder"):
-        trelate.run_all(*args, device="cpu", sample_ages_path="ages.txt")
     assert not os.path.exists(str(tmp / "never.tmpdir"))
+
+
+def _jax_env(monkeypatch):
+    monkeypatch.setenv("RELATE_TPU_PALLAS_INTERPRET", "1")
+    monkeypatch.setenv("RELATE_TPU_PAINT_DMAX_BUCKET", "8")
+    monkeypatch.setenv("RELATE_TPU_PAINT_L_BUCKET", "64")
+
+
+def test_build_topology_unknown_ancestral_allele_matches_jax(
+        stores, tmp_path, monkeypatch):
+    """BuildTopology with an unknown ancestral allele (the host builder),
+    the port's through the CLI's ``--anc_allele_unknown``, on copies of the
+    JAX package's store: the same ``.anc``/``.mut`` bytes. The JAX package's
+    merge scan is its Pallas scan in interpret mode (the port's tie hash)."""
+    W = stores["W"]
+    _jax_env(monkeypatch)
+    js = JaxStore(_copy_store(stores["jstore"], tmp_path / "jax"))
+    with pallas_scan():
+        jrelate.build_topology(js, 0, seed=4, theta=THETA,
+                               ancestral_state=False)
+    ts = ArtifactStore(_copy_store(stores["jstore"], tmp_path / "port"))
+    assert tcli.main(["--mode", "BuildTopology", "-o", ts.outdir, "--seed",
+                      "4", "--anc_allele_unknown", "--device", "cpu"]) == 0
+    flipped = 0
+    for w in range(W):
+        for f in (f"trees_{w}.anc", f"muts_{w}.mut"):
+            assert filecmp.cmp(js.path("chunk_0", f), ts.path("chunk_0", f),
+                               shallow=False), f
+        flipped += sum(m.flipped for m in tancmut.read_mut_short(
+            ts.path("chunk_0", f"muts_{w}.mut")))
+    assert flipped > 0
+
+
+def test_run_all_with_sample_ages_matches_jax(stores, tmp_path, monkeypatch):
+    """``run_all(sample_ages_path=...)`` of both packages: the ages reach
+    MakeChunks, the age-aware tree builder (the JAX package's with the
+    port's tie hash in place of threefry), the MCMC and the ``.anc``. Both
+    packages' chains are replaced by one deterministic function of the tree
+    (which records the ages it was given), so that the final ``.anc`` and
+    ``.mut`` can be held byte for byte; the chains with ages are held
+    against each other in ``test_torch_mcmc*.py``."""
+    prefix, tmp = stores["prefix"], stores["tmp"]
+    args = (prefix + ".haps", prefix + ".sample", str(tmp / "map.txt"))
+    ages = np.array([0, 0, 0, 0, 0, 0, 800.0, 800.0])
+    ages_path = tmp_path / "ages.txt"
+    ages_path.write_text(" ".join(str(a) for a in ages) + "\n")
+    seen = []
+
+    def fixed_lengths(trees, *a, sample_ages=None, **k):
+        seen.append(sample_ages)
+        out = []
+        for tr in trees:
+            Mt = len(tr.parent)
+            bl = 900.0 + 10.0 * np.asarray(tr.num_events, dtype=np.float64) \
+                + (np.arange(Mt) % 5)
+            bl[Mt - 1] = 0.0
+            out.append(bl)
+        return out
+
+    _jax_env(monkeypatch)
+    monkeypatch.setattr(jrelate.mcmc, "run_mcmc", fixed_lengths)
+    monkeypatch.setattr(trelate.mcmc, "run_mcmc", fixed_lengths)
+    with port_ties():
+        jrelate.run_all(*args, str(tmp_path / "jax"), seed=1,
+                        memory_gb=MEMORY_GB, theta=THETA, verbose=False,
+                        sample_ages_path=str(ages_path))
+    out = trelate.run_all(*args, str(tmp_path / "port"), seed=1,
+                          memory_gb=MEMORY_GB, theta=THETA, verbose=False,
+                          sample_ages_path=str(ages_path), device="cpu")
+    for ext in (".anc", ".mut"):
+        assert filecmp.cmp(str(tmp_path / "jax") + ext, out + ext,
+                           shallow=False), ext
+    assert len(seen) == 2 * stores["W"]
+    assert all(np.array_equal(a, ages) for a in seen)
+    anc = tancmut.read_anc_text(out + ".anc")
+    assert np.array_equal(anc.sample_ages, ages)
+    assert len(anc.seq) > stores["W"]
+    muts = tancmut.read_mut_final(out + ".mut")
+    assert len(muts) == L
 
 
 def _copy_store(src, dst):
