@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``relate_tpu_torch/csrc``, holds every kernel
-against its plain PyTorch version on the card, drives the port's five main
+against its plain PyTorch version on the card, drives the port's seven main
 paths through ``relate_tpu_torch.pipeline.relate`` and its CLI and checks
 what they wrote:
 
@@ -23,7 +23,14 @@ what they wrote:
 - MakeChunks -> Paint -> BuildTopology ``--anc_allele_unknown`` at N = 1024
   through the stage modes of ``pipeline/cli.py``: the host topology builder
   with symmetrised distances and flip coins, every tree built by the merge
-  scan with clade rows.
+  scan with clade rows;
+- ``run_all(postprocess=True)`` at N = 2048 and L = 8192: PostProcess (one
+  product a tree for the clade counts, the node loop on the host, every SNP
+  mapped again) and FindEquivalentBranches again before the branch
+  lengths; every window's records must map their own SNPs;
+- OptimizeParameters at N = 1024 on a 2 x 2 grid of theta and rho over the
+  first 101 SNPs (the stepping stones, the repaint and one merge scan a
+  SNP), and once through the CLI's ``--mode OptimizeParameters --input``.
 
 Phases, each printing one JSON line: ``device``, ``build``, ``inputs``,
 ``kernels`` (the incremental merge scan also at N = 2 ... 1000, the sizes
@@ -35,8 +42,11 @@ with the time a row of the longest chain takes, their launch configuration
 the full plain sweep rescales), ``main_path`` (N = 1024), ``run_all``
 (N = 2048), ``run_all_n4096``, ``run_all_ancient`` (with the age-aware
 scan's ms a build and the kernels it launches), ``anc_unknown``,
-``cpu_vs_card`` (N = 64, with two sections through the host topology
-builder); then the ``{"kernels": [...]}`` line,
+``run_all_postprocess`` (with PostProcess's ms a tree for the product, the
+node loop and the remapping), ``optimize``, ``cpu_vs_card`` (N = 64, with
+two sections through the host topology builder, and PostProcess and
+OptimizeParameters, which must be equal on both devices); then the
+``{"kernels": [...]}`` line,
 the card's name and power limit as ``nvidia-smi`` gives them, and the result
 line. The launch counts are set to 0 just before each path and read just
 after it. Any phase that fails ends the run with a non-zero exit code. Needs
@@ -78,6 +88,7 @@ import argparse
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -110,13 +121,16 @@ FP32_FLOPS = 67e12             # H100 SXM, float32 outside the tensor cores
 L2_BYTES = 50e6                # H100 SXM: what is re-read from below this stays on chip
 TIME_BUDGET_S = 560.0          # further sections are built while under this
 SMALLER_MEMORY_GB = 1.25       # gives the N = 1024 panel 3 windows (about 2,900 SNPs)
+OPT_MAX_SNPS = 100             # OptimizeParameters: SNPs 0 ... 100 of section 0
 DEV = "cuda"                   # the port's entry points get this device
 
 T_START = time.time()
 
 
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line a phase; ``at_s``: seconds since the script started."""
+    print(json.dumps({"phase": phase, "at_s": round(time.time() - T_START, 1),
+                      **kw}), flush=True)
 
 
 def fail(msg):
@@ -1214,14 +1228,18 @@ def age_scan_cost(N, ages):
                 device_busy_share=prof["device_busy_share"])
 
 
-def phase_run_all(G, bp, memory_gb, kernels, phase, scan, ages=None):
+def phase_run_all(G, bp, memory_gb, kernels, phase, scan, ages=None,
+                  postprocess=False):
     """``run_all`` (Relate --mode All) through the port's entry point, with
     every launch count set to 0 just before and read just after, and the
     checks on the ``.anc``/``.mut`` it wrote. ``scan`` names the merge-scan
     kernel that this width must launch, once for every tree it builds, and
     the other two must not be launched at all. With ``ages`` (sample ages
     in generations) every tree is built by the age-aware scan, no merge-scan
-    kernel is launched, and the trees must hold the ancient tips."""
+    kernel is launched, and the trees must hold the ancient tips. With
+    ``postprocess`` the run post-processes every chunk and associates its
+    trees again; every window's records must then map their own SNPs
+    (``check_window_mapping``)."""
     from relate_tpu_torch.io import ancmut
     from relate_tpu_torch.io.chunking import ArtifactStore
     from relate_tpu_torch.pipeline import relate
@@ -1248,7 +1266,8 @@ def phase_run_all(G, bp, memory_gb, kernels, phase, scan, ages=None):
         relate.run_all(prefix + ".haps", prefix + ".sample",
                        os.path.join(tmp, "map.txt"), out, seed=1,
                        memory_gb=memory_gb, theta=THETA, cleanup=False,
-                       verbose=False, sample_ages_path=ages_path, device=DEV)
+                       verbose=False, sample_ages_path=ages_path,
+                       postprocess=postprocess, device=DEV)
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = read_counts()
@@ -1264,6 +1283,8 @@ def phase_run_all(G, bp, memory_gb, kernels, phase, scan, ages=None):
             store.path("chunk_0", f"trees_{w}.anc")).seq) for w in range(W)]
         anc = ancmut.read_anc_text(out + ".anc")
         muts = ancmut.read_mut_final(out + ".mut")
+        windows_mapping = (check_window_mapping(phase, store, N)
+                           if postprocess else None)
 
     if anc.N != N or len(anc.seq) != sum(trees_per_section):
         fail(f"{phase}: .anc has N = {anc.N} and {len(anc.seq)} trees; the "
@@ -1306,13 +1327,17 @@ def phase_run_all(G, bp, memory_gb, kernels, phase, scan, ages=None):
             ancient_haplotypes=int((ages > 0).sum()),
             node_age_disagreement_max=check_ancient_trees(phase, anc, ages),
             age_scan=age_scan_cost(N, ages))
+    if postprocess:
+        extra = dict(postprocess=post_process_stats(phase, STAGES),
+                     windows_mapping=windows_mapping)
 
     mcmc_stats = [m for r in STAGES for m in r.get("mcmc", [])]
     feb = [m for r in STAGES for m in r.get("feb", [])]
     # every tree build of BuildTopology, the reverted candidates included
     tree_builds = sum(m["tree_builds"] for r in STAGES
                       for m in r.get("topology", []))
-    add_launches(kernels, f"run_all_n{N}", counts)
+    add_launches(kernels, f"{phase}_n{N}" if postprocess else
+                 f"run_all_n{N}", counts)
     needed = ("paint_fwd", "paint_bwd", "paint_fwd_capture",
               "paint_bwd_capture") + ((scan,) if scan else ())
     missing = [n for n in needed if counts[n] <= 0]
@@ -1344,6 +1369,150 @@ def phase_run_all(G, bp, memory_gb, kernels, phase, scan, ages=None):
     if launched != tree_builds or tree_builds < len(anc.seq):
         fail(f"{phase}: {launched} merge scans for {tree_builds} tree "
              f"builds and {len(anc.seq)} trees")
+
+
+def check_window_mapping(phase, store, N):
+    """PostProcess maps record i of window w with SNP start_w + i. Each
+    record on one branch must hold its own SNP's carriers (flipped: the
+    non-carriers) within the mapper's 0.03 N mismatches; the share that
+    holds them exactly is reported. For windows after the first, the
+    records are also held against the SNPs ``start_w`` rows earlier, the
+    rows the JAX package's ``post_process_chunk`` maps them with: most
+    miss."""
+    from relate_tpu_torch.io import ancmut
+    ch = store.load_chunk(0)
+    G, bounds = ch.G, ch.windows.boundaries
+    out = []
+    for w in range(len(bounds) - 1):
+        start = bounds[w]
+        anc = ancmut.read_anc_bin(store.path("chunk_0", f"trees_{w}.anc"))
+        muts = ancmut.read_mut_short(store.path("chunk_0", f"muts_{w}.mut"))
+        one = [(i, m.tree, m.branch[0], m.flipped)
+               for i, m in enumerate(muts) if len(m.branch) == 1]
+        if len(muts) != (bounds[w + 1] if w + 2 < len(bounds)
+                         else ch.L) - start or not one:
+            fail(f"{phase}: window {w} has {len(muts)} records, "
+                 f"{len(one)} on one branch")
+        rec = np.array(one, dtype=np.int64)
+        mism = np.empty(len(rec), dtype=np.int64)
+        early = np.empty(len(rec), dtype=np.int64)
+        for t in np.unique(rec[:, 1]):
+            k = np.nonzero(rec[:, 1] == t)[0]
+            leaves = anc.seq[t].tree.leaf_matrix()[rec[k, 2]].astype(bool)
+            flip = rec[k, 3].astype(bool)[:, None]
+            own = (G[start + rec[k, 0]] == 1) ^ flip
+            mism[k] = (leaves != own).sum(axis=1)
+            then = (G[rec[k, 0]] == 1) ^ flip
+            early[k] = (leaves != then).sum(axis=1)
+        row = dict(window=w, start=int(start), records=len(muts),
+                   one_branch=len(rec), exact=int((mism == 0).sum()),
+                   max_mismatches=int(mism.max()))
+        if w > 0:
+            row["beyond_against_rows_start_earlier"] = int(
+                (early > 0.03 * N).sum())
+        out.append(row)
+        if row["max_mismatches"] > 0.03 * N:
+            fail(f"{phase}: window {w}: a record on one branch misses its "
+                 f"own SNP by {row['max_mismatches']} haplotypes")
+    return out
+
+
+def post_process_stats(phase, stages):
+    """PostProcess's record, summed over the windows: trees, rearranged
+    nodes, sweeps, nodes visited, node batches, and the host ms a tree of
+    the product, of the node loop and of the remapping."""
+    recs = [m for r in stages for m in r.get("postprocess", [])]
+    if not recs:
+        fail(f"{phase}: PostProcess left no record")
+    tot = {k: sum(r[k] for r in recs) for k in recs[0]}
+    trees = max(tot["trees"], 1)
+    if tot["nodes_rearranged"] <= 0:
+        fail(f"{phase}: PostProcess rearranged no node")
+    return dict(
+        windows=len(recs), **{k: int(tot[k]) for k in (
+            "trees", "nodes_rearranged", "sweeps", "nodes_visited",
+            "batches")},
+        product_ms_per_tree=round(tot["product_s"] * 1e3 / trees, 3),
+        loop_ms_per_tree=round(tot["loop_s"] * 1e3 / trees, 3),
+        remap_ms_per_tree=round(tot["remap_s"] * 1e3 / trees, 3))
+
+
+def phase_optimize(G, bp, memory_gb, kernels):
+    """OptimizeParameters at N = 1024 on a MakeChunks store of the panel: a
+    2 x 2 grid (theta 1e-3, 1e-2; rho 1, 10) over the first 101 SNPs of
+    section 0, then the CLI's ``--mode OptimizeParameters --input`` on the
+    same store with a 1 x 1 grid. The launch counts are set to 0 just before
+    and read just after: each grid point runs the stepping stones (B3, B4)
+    and the repaint (B1, B2), and every SNP with carriers and non-carriers
+    one tree build (B5). The CLI's row must be the function's."""
+    from relate_tpu_torch.io.chunking import ArtifactStore
+    from relate_tpu_torch.pipeline import cli, relate
+    from relate_tpu_torch.utils import synth
+
+    L, N = G.shape
+    thetas, rhos, max_snps = [1e-3, 1e-2], [1.0, 10.0], OPT_MAX_SNPS
+    with tempfile.TemporaryDirectory(prefix="relate_smoke_") as tmp:
+        prefix = os.path.join(tmp, "panel")
+        synth.write_haps_sample(G, bp, prefix)
+        synth.write_flat_map(os.path.join(tmp, "map.txt"), int(bp[-1]))
+        out = os.path.join(tmp, "store")
+        relate.make_chunks(prefix + ".haps", prefix + ".sample",
+                           os.path.join(tmp, "map.txt"), out,
+                           memory_gb=memory_gb, device=DEV)
+        store = ArtifactStore(out)
+        ch = store.load_chunk(0)
+        W = ch.windows.num_windows
+        end = min(ch.windows.boundaries[1] - 1, L - 1, max_snps)
+        daf = ch.G[:end + 1].sum(axis=1)
+        builds = int(((daf > 0) & (daf < N)).sum())
+        reset_counts()
+        t0 = time.time()
+        rows = relate.optimize_parameters(store, 0, thetas=thetas,
+                                          rho_scales=rhos, max_snps=max_snps,
+                                          seed=1, device=DEV)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        counts = read_counts()
+        grid = os.path.join(tmp, "grid.txt")
+        with open(grid, "w") as f:
+            f.write("0.001\n1\n")
+        reset_counts()
+        t0 = time.time()
+        if cli.main(["--mode", "OptimizeParameters", "--input", grid,
+                     "--max_snps", str(max_snps), "-o",
+                     os.path.join(tmp, "opt"), "--store", out, "--seed", "1",
+                     "--device", DEV]) != 0:
+            fail("optimize: the CLI's OptimizeParameters failed")
+        torch.cuda.synchronize()
+        cli_seconds = time.time() - t0
+        cli_counts = read_counts()
+        with open(os.path.join(tmp, "opt.opt")) as f:
+            opt_text = f.read()
+        relate.write_opt(os.path.join(tmp, "want.opt"), rows[:1])
+        with open(os.path.join(tmp, "want.opt")) as f:
+            want_text = f.read()
+    add_launches(kernels, f"optimize_n{N}",
+                 {k: counts[k] + cli_counts[k] for k in counts})
+    emit("optimize", N=N, L=L, windows=W, section_snps=end + 1,
+         tree_builds_per_grid_point=builds,
+         rows=[dict(theta=t, rho=r, not_mapping_share=v) for t, r, v in rows],
+         seconds=round(seconds, 3), seconds_per_grid_point=round(
+             seconds / len(rows), 3), launches=counts,
+         cli_seconds=round(cli_seconds, 3), cli_launches=cli_counts,
+         cli_opt=opt_text.strip())
+    n = len(rows)
+    want = dict(paint_fwd=n, paint_bwd=n, paint_fwd_capture=n * (W - 1),
+                paint_bwd_capture=n * (W - 1), merge_scan=n * builds,
+                merge_scan_large=0, merge_scan_inc=0)
+    if counts != want or cli_counts != {k: v // n for k, v in want.items()}:
+        fail(f"optimize: launches {counts} and {cli_counts} (CLI); wanted "
+             f"{want} and a quarter of it")
+    if [(t, r) for t, r, _ in rows] != [(t, r) for t in thetas for r in rhos] \
+            or not all(0.0 <= v <= 1.0 for _, _, v in rows):
+        fail(f"optimize: rows {rows}")
+    if opt_text != want_text:
+        fail(f"optimize: the CLI wrote {opt_text!r}, the function gives "
+             f"{want_text!r}")
 
 
 def phase_anc_unknown(G, bp, memory_gb, kernels):
@@ -1566,10 +1735,14 @@ def phase_cpu_vs_card():
     ``run_all`` calls, stage by stage so that what each stage wrote can be
     held against the other device's; then the first section again through
     the host topology builder, with an unknown ancestral allele and (in a
-    store of its own) with 16 ancient haplotypes."""
+    store of its own) with 16 ancient haplotypes; then PostProcess of the
+    CPU's first section after FindEquivalentBranches and OptimizeParameters
+    (2 x 2 grid, 101 SNPs) on both devices from the same files, which must
+    give equal trees, records and rows (integer counts and one tie hash on
+    both)."""
     from relate_tpu_torch.io import ancmut
     from relate_tpu_torch.io.chunking import ArtifactStore
-    from relate_tpu_torch.pipeline import relate
+    from relate_tpu_torch.pipeline import postprocess, relate
     from relate_tpu_torch.utils import synth
 
     N, L = 64, 2000
@@ -1604,6 +1777,11 @@ def phase_cpu_vs_card():
             built = section_bytes()
             relate.find_equivalent_branches(store, 0, device=dev)
             matched = section_bytes()
+            if dev == "cpu":
+                pp_in = [store.path("chunk_0", f)
+                         for f in ("trees_0.anc", "muts_0.mut")]
+                for f in pp_in:
+                    shutil.copy(f, f + ".feb")
             relate.infer_branch_lengths(store, 0, seed=1, device=dev)
             relate.combine_sections(store, 0)
             final = os.path.join(tmp, "final_" + dev)
@@ -1633,6 +1811,33 @@ def phase_cpu_vs_card():
             host.append(host_section_trees(ages_store))
             out[dev] = (W, [{k: z[k] for k in z.files} for z in cps], trees,
                         built, matched, totals, host)
+        pp, opt = {}, {}
+        cpu_store = ArtifactStore(os.path.join(tmp, "store_cpu"))
+        ch = cpu_store.load_chunk(0)
+        for dev in (DEV, "cpu"):
+            anc = ancmut.read_anc_bin(pp_in[0] + ".feb")
+            muts = ancmut.read_mut_short(pp_in[1] + ".feb")
+            n = postprocess.post_process(anc, muts, ch.G, ch.bp, seed=1,
+                                         device=dev)
+            pp[dev] = (n, [(mt.pos,) + tuple(
+                getattr(mt.tree, f).tobytes() for f in (
+                    "parent", "child_left", "child_right", "branch_length",
+                    "num_events", "SNP_begin", "SNP_end"))
+                for mt in anc.seq],
+                [(m.tree, m.branch, m.flipped, m.age_begin, m.age_end)
+                 for m in muts])
+            opt[dev] = relate.optimize_parameters(
+                cpu_store, 0, thetas=[1e-3, 1e-2], rho_scales=[1.0, 10.0],
+                max_snps=100, seed=1, device=dev)
+    if pp[DEV][0] != pp["cpu"][0] or pp[DEV][0] <= 0:
+        fail(f"cpu_vs_card: PostProcess rearranged {pp[DEV][0]} nodes on "
+             f"the card, {pp['cpu'][0]} on the CPU")
+    if pp[DEV][1:] != pp["cpu"][1:]:
+        fail("cpu_vs_card: PostProcess wrote other trees or records on the "
+             "card than on the CPU")
+    if opt[DEV] != opt["cpu"]:
+        fail(f"cpu_vs_card: OptimizeParameters gave {opt[DEV]} on the card, "
+             f"{opt['cpu']} on the CPU")
     (Wc, cps_c, trees_c, built_c, matched_c, tot_c, host_c) = out[DEV]
     (Wh, cps_h, trees_h, built_h, matched_h, tot_h, host_h) = out["cpu"]
     if Wc != Wh or Wc < 2:
@@ -1699,14 +1904,17 @@ def phase_cpu_vs_card():
          host_builder_trees_card=host_c, host_builder_trees_cpu=host_h,
          build_topology_bytes_equal=same_built,
          find_equivalent_branches_bytes_equal=matched_c == matched_h,
-         total_branch_length=length)
+         total_branch_length=length, post_process_rearranged=pp[DEV][0],
+         post_process_trees=len(pp[DEV][1]), post_process_equal=True,
+         optimize_rows=opt[DEV], optimize_equal=True)
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="kernels,main_path,run_all,run_all_n4096,"
-                            "run_all_ancient,anc_unknown,cpu_vs_card")
+                            "run_all_ancient,anc_unknown,run_all_postprocess,"
+                            "optimize,cpu_vs_card")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -1724,7 +1932,8 @@ def main():
     memory_auto = auto_memory_gb()
     panels = {}
     uses_panels = {"kernels", "main_path", "run_all", "run_all_n4096",
-                   "run_all_ancient", "anc_unknown", "profile"}
+                   "run_all_ancient", "anc_unknown", "run_all_postprocess",
+                   "optimize", "profile"}
     for N in (N_HAP, N_LARGE, N_INC) if phases & uses_panels else ():
         G, bp = make_panel(N, L_SNPS_INC if N == N_INC else L_SNPS)
         memory_gb = memory_auto
@@ -1761,6 +1970,13 @@ def main():
         torch.cuda.empty_cache()
     if "anc_unknown" in phases:
         phase_anc_unknown(*panels[N_HAP], kernels)
+        torch.cuda.empty_cache()
+    if "run_all_postprocess" in phases:
+        phase_run_all(*panels[N_LARGE], kernels, "run_all_postprocess",
+                      "merge_scan_large", postprocess=True)
+        torch.cuda.empty_cache()
+    if "optimize" in phases:
+        phase_optimize(*panels[N_HAP], kernels)
         torch.cuda.empty_cache()
     if "cpu_vs_card" in phases:
         phase_cpu_vs_card()

@@ -4,6 +4,7 @@ version for CPU tensors, and its entry points do not fall back to the CPU."""
 import ast
 import os
 import pkgutil
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -14,10 +15,12 @@ import torch
 
 import relate_tpu_torch
 from relate_tpu_torch.core import branch_association_device, mcmc, painting
+from relate_tpu_torch.io.chunking import ArtifactStore
 from relate_tpu_torch.ops import _build
 from relate_tpu_torch.ops import merge_scan as ms
 from relate_tpu_torch.ops import paint_kernels as pk
-from relate_tpu_torch.pipeline import cli, relate
+from relate_tpu_torch.pipeline import cli, postprocess, relate
+from relate_tpu_torch.utils import synth
 from relate_tpu_torch.utils import devmem
 
 torch.set_num_threads(1)
@@ -37,7 +40,7 @@ def test_every_module_imports_without_jax():
     names = _module_names()
     assert len(names) >= 24
     for new in ("core.branch_association", "core.branch_association_device",
-                "core.mcmc", "ops.merge_scan_inc"):
+                "core.mcmc", "ops.merge_scan_inc", "pipeline.postprocess"):
         assert "relate_tpu_torch." + new in names
     code = (
         "import importlib, sys\n"
@@ -152,6 +155,14 @@ def test_entry_points_do_not_fall_back_to_the_cpu(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["--mode", "All", "-o", str(tmp_path / "r")])
     with pytest.raises(RuntimeError, match="CUDA"):
+        relate.post_process_chunk(None, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        postprocess.post_process(None, [], G, np.arange(10))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        relate.optimize_parameters(None, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--mode", "PostProcess", "-o", str(tmp_path / "o")])
+    with pytest.raises(RuntimeError, match="CUDA"):
         mcmc.run_mcmc([None], np.zeros(1), 1)
     with pytest.raises(RuntimeError, match="CUDA"):
         branch_association_device.branch_association_many_device([None])
@@ -163,16 +174,53 @@ def test_entry_points_do_not_fall_back_to_the_cpu(tmp_path):
     assert devmem.resolve_device("cpu").type == "cpu"
 
 
-def test_cli_names_the_modes_that_are_not_ported(tmp_path, capsys):
-    assert cli.PORTED == ("All", "MakeChunks", "Paint", "BuildTopology",
-                          "FindEquivalentBranches", "InferBranchLengths",
-                          "CombineSections", "Finalize")
-    for mode in cli.NOT_PORTED:
-        assert cli.main(["--mode", mode, "-o", str(tmp_path / "o"),
-                         "--device", "cpu"]) == 2
-        assert "not ported yet" in capsys.readouterr().err
-    assert set(cli.NOT_PORTED) == {"PostProcess", "OptimizeParameters",
-                                   "Clean"}
+def test_cli_names_the_modes_that_are_not_ported(tmp_path):
+    """Every mode of the reference binary is a mode of the port's CLI:
+    PostProcess, OptimizeParameters and Clean run on a store of a small
+    panel (MakeChunks -> Paint -> BuildTopology -> FindEquivalentBranches
+    through the CLI), and write what the functions they call write."""
+    assert cli.MODES == ("All", "MakeChunks", "Paint", "BuildTopology",
+                         "FindEquivalentBranches", "InferBranchLengths",
+                         "CombineSections", "Finalize", "PostProcess",
+                         "OptimizeParameters", "Clean")
+    G, bp = synth.synth_coalescent_panel(8, 160, seed=2)[:2]
+    prefix = str(tmp_path / "p")
+    synth.write_haps_sample(G, bp, prefix)
+    synth.write_flat_map(prefix + ".map", int(bp[-1]))
+    out = str(tmp_path / "o")
+    common = ["-o", out + ".tmpdir", "--device", "cpu", "--seed", "3"]
+    assert cli.main(["--mode", "MakeChunks", "--haps", prefix + ".haps",
+                     "--sample", prefix + ".sample", "--map",
+                     prefix + ".map", "--memory", "1"] + common) == 0
+    for mode in ("Paint", "BuildTopology", "FindEquivalentBranches"):
+        assert cli.main(["--mode", mode] + common) == 0
+    store = ArtifactStore(out + ".tmpdir")
+    copy = ArtifactStore(str(tmp_path / "copy"))
+    shutil.copytree(store.outdir, copy.outdir)
+    files = ("trees_0.anc", "muts_0.mut")
+    before = [open(store.path("chunk_0", f), "rb").read() for f in files]
+    assert cli.main(["--mode", "PostProcess", "--randomise"] + common) == 0
+    relate.post_process_chunk(copy, 0, seed=3, randomise=True, device="cpu")
+    relate.find_equivalent_branches(copy, 0, device="cpu")
+    after = [open(store.path("chunk_0", f), "rb").read() for f in files]
+    assert after != before
+    assert after == [open(copy.path("chunk_0", f), "rb").read()
+                     for f in files]
+
+    grid = tmp_path / "grid.txt"
+    grid.write_text("0.001 0.1\n1\n")
+    assert cli.main(["--mode", "OptimizeParameters", "--input", str(grid),
+                     "--max_snps", "40", "-o", out, "--store",
+                     store.outdir, "--device", "cpu", "--seed", "3"]) == 0
+    rows = relate.optimize_parameters(store, 0, thetas=[0.001, 0.1],
+                                      rho_scales=[1.0], max_snps=40, seed=3,
+                                      device="cpu")
+    relate.write_opt(str(tmp_path / "want.opt"), rows)
+    assert open(out + ".opt").read() == open(tmp_path / "want.opt").read()
+    assert len(rows) == 2
+
+    assert cli.main(["--mode", "Clean", "-o", out, "--device", "cpu"]) == 0
+    assert not (tmp_path / "o.tmpdir").exists()
     assert relate_tpu_torch.__version__
 
 

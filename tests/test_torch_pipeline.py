@@ -219,16 +219,54 @@ def test_cli_stages_and_cache_handoff(stores, tmp_path):
         assert np.array_equal(a.tree.parent, b.tree.parent)
 
 
-def test_unported_options_raise(stores):
-    """PostProcess is not ported; ``run_all`` refuses it before it writes
-    anything. (An unknown ancestral allele and sample ages run: the two
-    tests below.)"""
+def test_unported_options_raise(stores, tmp_path, monkeypatch):
+    """``run_all(postprocess=True)`` of both packages on the panel in one
+    window (PostProcess, then FindEquivalentBranches again): the same
+    ``.anc``/``.mut`` bytes. Both packages' chains are replaced by one
+    deterministic function of the tree, the JAX package's merge scan is its
+    Pallas scan in interpret mode and its merge seeds are handed to the
+    port. (The JAX ``post_process_chunk`` maps a window's records with the
+    wrong genotypes from window 1 on, so only one window can be held byte for byte;
+    ``test_torch_postprocess.py`` holds the windows.)"""
     prefix, tmp = stores["prefix"], stores["tmp"]
-    args = (prefix + ".haps", prefix + ".sample", str(tmp / "map.txt"),
-            str(tmp / "never"))
-    with pytest.raises(NotImplementedError, match="PostProcess"):
-        trelate.run_all(*args, device="cpu", postprocess=True)
-    assert not os.path.exists(str(tmp / "never.tmpdir"))
+    args = (prefix + ".haps", prefix + ".sample", str(tmp / "map.txt"))
+    _jax_env(monkeypatch)
+    monkeypatch.setattr(jtd, "_pallas_available", lambda n: True)
+    monkeypatch.setattr(jrelate.mcmc, "run_mcmc", _fixed_lengths)
+    monkeypatch.setattr(trelate.mcmc, "run_mcmc", _fixed_lengths)
+    one = dict(seed=1, memory_gb=1.0, theta=THETA, verbose=False,
+               postprocess=True)
+    cached = set(jtd._KERNEL_CACHE)
+    try:
+        jrelate.run_all(*args, str(tmp_path / "jax"), **one)
+    finally:
+        for k in set(jtd._KERNEL_CACHE) - cached:
+            del jtd._KERNEL_CACHE[k]
+    monkeypatch.setattr(ttd, "default_merge_seeds", jax_merge_seeds)
+    del ttrace.STAGES[:]
+    out = trelate.run_all(*args, str(tmp_path / "port"), device="cpu", **one)
+    for ext in (".anc", ".mut"):
+        assert filecmp.cmp(str(tmp_path / "jax") + ext, out + ext,
+                           shallow=False), ext
+    names = [r["stage"] for r in ttrace.STAGES]
+    assert names.index("chunk0.find_equivalent_branches") < \
+        names.index("chunk0.post_process") < \
+        names.index("chunk0.find_equivalent_branches.post") < \
+        names.index("chunk0.infer_branch_lengths")
+    (pp,) = [r for r in ttrace.STAGES if r["stage"] == "chunk0.post_process"]
+    assert pp["postprocess"][0]["nodes_rearranged"] > 0
+    assert len(tancmut.read_mut_final(out + ".mut")) == L
+
+
+def _fixed_lengths(trees, *args, **kwargs):
+    out = []
+    for tr in trees:
+        M = len(tr.parent)
+        bl = 10.0 * np.asarray(tr.num_events, dtype=np.float64) \
+            + (np.arange(M) % 5) + 1.0
+        bl[M - 1] = 0.0
+        out.append(bl)
+    return out
 
 
 def _jax_env(monkeypatch):
