@@ -29,8 +29,9 @@ what they wrote:
   mapped again) and FindEquivalentBranches again before the branch
   lengths; every window's records must map their own SNPs;
 - OptimizeParameters at N = 1024 on a 2 x 2 grid of theta and rho over the
-  first 101 SNPs (the stepping stones, the repaint and one merge scan a
-  SNP), and once through the CLI's ``--mode OptimizeParameters --input``.
+  first 251 SNPs (the stepping stones, the repaint and one merge scan a
+  SNP); the CLI's ``--mode OptimizeParameters --input`` runs at its
+  default on the N = 64 store of ``cpu_vs_card``.
 
 Phases, each printing one JSON line: ``device``, ``build``, ``inputs``,
 ``kernels`` (the incremental merge scan also at N = 2 ... 1000, the sizes
@@ -121,7 +122,7 @@ FP32_FLOPS = 67e12             # H100 SXM, float32 outside the tensor cores
 L2_BYTES = 50e6                # H100 SXM: what is re-read from below this stays on chip
 TIME_BUDGET_S = 560.0          # further sections are built while under this
 SMALLER_MEMORY_GB = 1.25       # gives the N = 1024 panel 3 windows (about 2,900 SNPs)
-OPT_MAX_SNPS = 100             # OptimizeParameters: SNPs 0 ... 100 of section 0
+OPT_MAX_SNPS = 250             # OptimizeParameters: SNPs 0 ... 250 of section 0
 DEV = "cuda"                   # the port's entry points get this device
 
 T_START = time.time()
@@ -1419,7 +1420,8 @@ def check_window_mapping(phase, store, N):
 
 def post_process_stats(phase, stages):
     """PostProcess's record, summed over the windows: trees, rearranged
-    nodes, sweeps, nodes visited, node batches, and the host ms a tree of
+    nodes, sweeps, nodes visited, node batches, fallback node evaluations,
+    uploaded rows, and the host ms a tree of
     the product, of the node loop and of the remapping."""
     recs = [m for r in stages for m in r.get("postprocess", [])]
     if not recs:
@@ -1431,7 +1433,7 @@ def post_process_stats(phase, stages):
     return dict(
         windows=len(recs), **{k: int(tot[k]) for k in (
             "trees", "nodes_rearranged", "sweeps", "nodes_visited",
-            "batches")},
+            "batches", "fallback_nodes", "uploaded_rows")},
         product_ms_per_tree=round(tot["product_s"] * 1e3 / trees, 3),
         loop_ms_per_tree=round(tot["loop_s"] * 1e3 / trees, 3),
         remap_ms_per_tree=round(tot["remap_s"] * 1e3 / trees, 3))
@@ -1439,14 +1441,14 @@ def post_process_stats(phase, stages):
 
 def phase_optimize(G, bp, memory_gb, kernels):
     """OptimizeParameters at N = 1024 on a MakeChunks store of the panel: a
-    2 x 2 grid (theta 1e-3, 1e-2; rho 1, 10) over the first 101 SNPs of
-    section 0, then the CLI's ``--mode OptimizeParameters --input`` on the
-    same store with a 1 x 1 grid. The launch counts are set to 0 just before
-    and read just after: each grid point runs the stepping stones (B3, B4)
-    and the repaint (B1, B2), and every SNP with carriers and non-carriers
-    one tree build (B5). The CLI's row must be the function's."""
+    2 x 2 grid (theta 1e-3, 1e-2; rho 1, 10) over the first 251 SNPs of
+    section 0. The launch counts are set to 0 just before and read just
+    after: each grid point runs the stepping stones (B3, B4) and the repaint
+    (B1, B2), and every SNP with carriers and non-carriers one tree build
+    (B5). (The CLI's mode runs at its default of 2001 SNPs in
+    ``cpu_vs_card``, at N = 64: here it would take about a minute.)"""
     from relate_tpu_torch.io.chunking import ArtifactStore
-    from relate_tpu_torch.pipeline import cli, relate
+    from relate_tpu_torch.pipeline import relate
     from relate_tpu_torch.utils import synth
 
     L, N = G.shape
@@ -1473,46 +1475,21 @@ def phase_optimize(G, bp, memory_gb, kernels):
         torch.cuda.synchronize()
         seconds = time.time() - t0
         counts = read_counts()
-        grid = os.path.join(tmp, "grid.txt")
-        with open(grid, "w") as f:
-            f.write("0.001\n1\n")
-        reset_counts()
-        t0 = time.time()
-        if cli.main(["--mode", "OptimizeParameters", "--input", grid,
-                     "--max_snps", str(max_snps), "-o",
-                     os.path.join(tmp, "opt"), "--store", out, "--seed", "1",
-                     "--device", DEV]) != 0:
-            fail("optimize: the CLI's OptimizeParameters failed")
-        torch.cuda.synchronize()
-        cli_seconds = time.time() - t0
-        cli_counts = read_counts()
-        with open(os.path.join(tmp, "opt.opt")) as f:
-            opt_text = f.read()
-        relate.write_opt(os.path.join(tmp, "want.opt"), rows[:1])
-        with open(os.path.join(tmp, "want.opt")) as f:
-            want_text = f.read()
-    add_launches(kernels, f"optimize_n{N}",
-                 {k: counts[k] + cli_counts[k] for k in counts})
+    add_launches(kernels, f"optimize_n{N}", counts)
     emit("optimize", N=N, L=L, windows=W, section_snps=end + 1,
          tree_builds_per_grid_point=builds,
          rows=[dict(theta=t, rho=r, not_mapping_share=v) for t, r, v in rows],
          seconds=round(seconds, 3), seconds_per_grid_point=round(
-             seconds / len(rows), 3), launches=counts,
-         cli_seconds=round(cli_seconds, 3), cli_launches=cli_counts,
-         cli_opt=opt_text.strip())
+             seconds / len(rows), 3), launches=counts)
     n = len(rows)
     want = dict(paint_fwd=n, paint_bwd=n, paint_fwd_capture=n * (W - 1),
                 paint_bwd_capture=n * (W - 1), merge_scan=n * builds,
                 merge_scan_large=0, merge_scan_inc=0)
-    if counts != want or cli_counts != {k: v // n for k, v in want.items()}:
-        fail(f"optimize: launches {counts} and {cli_counts} (CLI); wanted "
-             f"{want} and a quarter of it")
+    if counts != want:
+        fail(f"optimize: launches {counts}; wanted {want}")
     if [(t, r) for t, r, _ in rows] != [(t, r) for t in thetas for r in rhos] \
             or not all(0.0 <= v <= 1.0 for _, _, v in rows):
         fail(f"optimize: rows {rows}")
-    if opt_text != want_text:
-        fail(f"optimize: the CLI wrote {opt_text!r}, the function gives "
-             f"{want_text!r}")
 
 
 def phase_anc_unknown(G, bp, memory_gb, kernels):
@@ -1736,14 +1713,18 @@ def phase_cpu_vs_card():
     held against the other device's; then the first section again through
     the host topology builder, with an unknown ancestral allele and (in a
     store of its own) with 16 ancient haplotypes; then PostProcess of the
-    CPU's first section after FindEquivalentBranches and OptimizeParameters
-    (2 x 2 grid, 101 SNPs) on both devices from the same files, which must
-    give equal trees, records and rows (integer counts and one tie hash on
-    both)."""
+    CPU's first section after FindEquivalentBranches (with the SNPs' own
+    positions, and with them spread 400 times wider, where nodes without
+    exact support within 10 Mb take the approximate fallback) and
+    OptimizeParameters (2 x 2 grid, 101 SNPs; and the CLI's
+    ``--mode OptimizeParameters`` at its default on the card against the
+    function on the CPU) on both devices from the same files, which must
+    give equal trees, records, rows and bytes (integer counts and one tie
+    hash on both)."""
     from relate_tpu_torch.io import ancmut
     from relate_tpu_torch.io.chunking import ArtifactStore
-    from relate_tpu_torch.pipeline import postprocess, relate
-    from relate_tpu_torch.utils import synth
+    from relate_tpu_torch.pipeline import cli, postprocess, relate
+    from relate_tpu_torch.utils import synth, trace
 
     N, L = 64, 2000
     G, bp = synth.synth_coalescent_panel(N, L, seed=SEED + 1)[:2]
@@ -1815,29 +1796,57 @@ def phase_cpu_vs_card():
         cpu_store = ArtifactStore(os.path.join(tmp, "store_cpu"))
         ch = cpu_store.load_chunk(0)
         for dev in (DEV, "cpu"):
-            anc = ancmut.read_anc_bin(pp_in[0] + ".feb")
-            muts = ancmut.read_mut_short(pp_in[1] + ".feb")
-            n = postprocess.post_process(anc, muts, ch.G, ch.bp, seed=1,
-                                         device=dev)
-            pp[dev] = (n, [(mt.pos,) + tuple(
-                getattr(mt.tree, f).tobytes() for f in (
-                    "parent", "child_left", "child_right", "branch_length",
-                    "num_events", "SNP_begin", "SNP_end"))
-                for mt in anc.seq],
-                [(m.tree, m.branch, m.flipped, m.age_begin, m.age_end)
-                 for m in muts])
+            for spread in (1, 400):
+                anc = ancmut.read_anc_bin(pp_in[0] + ".feb")
+                muts = ancmut.read_mut_short(pp_in[1] + ".feb")
+                with trace.stage("post_process", verbose=False):
+                    n = postprocess.post_process(anc, muts, ch.G,
+                                                 ch.bp * spread, seed=1,
+                                                 device=dev)
+                (stats,) = trace.STAGES[-1]["postprocess"]
+                pp[dev, spread] = (n, stats["fallback_nodes"], [
+                    (mt.pos,) + tuple(getattr(mt.tree, f).tobytes() for f in (
+                        "parent", "child_left", "child_right",
+                        "branch_length", "num_events", "SNP_begin",
+                        "SNP_end"))
+                    for mt in anc.seq],
+                    [(m.tree, m.branch, m.flipped, m.age_begin, m.age_end)
+                     for m in muts])
             opt[dev] = relate.optimize_parameters(
                 cpu_store, 0, thetas=[1e-3, 1e-2], rho_scales=[1.0, 10.0],
                 max_snps=100, seed=1, device=dev)
-    if pp[DEV][0] != pp["cpu"][0] or pp[DEV][0] <= 0:
-        fail(f"cpu_vs_card: PostProcess rearranged {pp[DEV][0]} nodes on "
-             f"the card, {pp['cpu'][0]} on the CPU")
-    if pp[DEV][1:] != pp["cpu"][1:]:
-        fail("cpu_vs_card: PostProcess wrote other trees or records on the "
-             "card than on the CPU")
+        grid = os.path.join(tmp, "grid.txt")
+        with open(grid, "w") as f:
+            f.write("0.01\n10\n")
+        if cli.main(["--mode", "OptimizeParameters", "--input", grid, "-o",
+                     os.path.join(tmp, "opt"), "--store", cpu_store.outdir,
+                     "--seed", "1", "--device", DEV]) != 0:
+            fail("cpu_vs_card: the CLI's OptimizeParameters failed")
+        relate.write_opt(os.path.join(tmp, "want.opt"),
+                         relate.optimize_parameters(
+                             cpu_store, 0, thetas=[0.01], rho_scales=[10.0],
+                             seed=1, device="cpu"))
+        with open(os.path.join(tmp, "opt.opt")) as f:
+            cli_opt = f.read()
+        with open(os.path.join(tmp, "want.opt")) as f:
+            want_opt = f.read()
+    for spread in (1, 400):
+        (nc, fc, *card), (nh, fh, *host) = pp[DEV, spread], pp["cpu", spread]
+        if nc != nh or nc <= 0:
+            fail(f"cpu_vs_card: PostProcess (spread {spread}) rearranged {nc} "
+                 f"nodes on the card, {nh} on the CPU")
+        if fc != fh or (fc > 0) != (spread > 1):
+            fail(f"cpu_vs_card: PostProcess (spread {spread}) took the "
+                 f"fallback {fc} times on the card, {fh} on the CPU")
+        if card != host:
+            fail(f"cpu_vs_card: PostProcess (spread {spread}) wrote other "
+                 "trees or records on the card than on the CPU")
     if opt[DEV] != opt["cpu"]:
         fail(f"cpu_vs_card: OptimizeParameters gave {opt[DEV]} on the card, "
              f"{opt['cpu']} on the CPU")
+    if cli_opt != want_opt:
+        fail(f"cpu_vs_card: the CLI wrote {cli_opt!r} on the card, the "
+             f"function gives {want_opt!r} on the CPU")
     (Wc, cps_c, trees_c, built_c, matched_c, tot_c, host_c) = out[DEV]
     (Wh, cps_h, trees_h, built_h, matched_h, tot_h, host_h) = out["cpu"]
     if Wc != Wh or Wc < 2:
@@ -1904,9 +1913,14 @@ def phase_cpu_vs_card():
          host_builder_trees_card=host_c, host_builder_trees_cpu=host_h,
          build_topology_bytes_equal=same_built,
          find_equivalent_branches_bytes_equal=matched_c == matched_h,
-         total_branch_length=length, post_process_rearranged=pp[DEV][0],
-         post_process_trees=len(pp[DEV][1]), post_process_equal=True,
-         optimize_rows=opt[DEV], optimize_equal=True)
+         total_branch_length=length,
+         post_process_rearranged=pp[DEV, 1][0],
+         post_process_trees=len(pp[DEV, 1][2]),
+         post_process_wide_rearranged=pp[DEV, 400][0],
+         post_process_wide_fallback_nodes=pp[DEV, 400][1],
+         post_process_equal=True, optimize_rows=opt[DEV],
+         optimize_equal=True, optimize_cli_opt=cli_opt.strip(),
+         optimize_cli_equal=True)
 
 
 def main():

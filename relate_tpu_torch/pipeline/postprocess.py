@@ -15,8 +15,9 @@ span and every SNP is mapped again onto the new topologies (:879-955).
 The decisions and their order are the JAX module's. What differs is where
 the carrier counts come from. The JAX module sums a (K, N) boolean block
 over each clade's columns, three to seven times for every node it visits.
-Here the tree's SNP window is one (K, N) slice of the chunk's eligible rows,
-uploaded once, and one product ``block @ leaf_matrix.T`` gives every node's
+Here the tree's SNP window is one (K, N) slice of the eligible rows that the
+sequence's trees reach, uploaded once as uint8, and one product
+``block @ leaf_matrix.T`` (the block cast to float32) gives every node's
 carrier count in a (K, 2N-1) matrix of integer columns. A pairing of two
 clades, or the fallback's union of three, is disjoint, so its count is a sum
 of columns; after an interchange at node i only i's clade changes, and its
@@ -103,6 +104,7 @@ class _Window:
         self.dist = dist               # (K,) float64
         self.thr, self.N = thr, N
         self.threshold, self.bp_init = threshold, bp_init
+        self.fallback = 0              # node evaluations that fell back
 
     def costs(self, n1: np.ndarray, n2: np.ndarray,
               n3: np.ndarray) -> np.ndarray:
@@ -134,6 +136,7 @@ class _Window:
                           for e in (e12, e13, e23)], dim=1)
         if thr > 1:
             fb = torch.nonzero((ce > self.threshold).all(dim=1)).flatten()
+            self.fallback += len(fb)
             if len(fb):
                 # approximate fallback (PostProcess.cpp:592-625): the best
                 # partial score wins if it beats mapping onto each child
@@ -321,8 +324,9 @@ def post_process(anc: AncesTree, muts: List[MutationRecord],
 
     Adds to the open stage's record (``utils.trace.note``, key
     ``postprocess``): trees, rearranged nodes, sweeps, nodes visited, node
-    batches, and the host seconds of the products (with the leaf matrices
-    and their uploads), of the node loops and of the remapping."""
+    batches, node evaluations that took the approximate fallback, uploaded
+    rows, and the host seconds of the products (with the leaf matrices and
+    their uploads), of the node loops and of the remapping."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     N = anc.N
@@ -341,13 +345,23 @@ def post_process(anc: AncesTree, muts: List[MutationRecord],
     daf_all = G.sum(axis=1, dtype=np.int64)
     elig = np.nonzero(daf_all > 1)[0]          # buffer-eligible SNPs
     elig_rank = np.searchsorted(elig, np.arange(L))
-    rows = torch.from_numpy(np.ascontiguousarray(G[elig])).to(dev).to(
-        torch.float32)
-    daf_dev = torch.from_numpy(daf_all[elig]).to(dev)
-    rd_dev = torch.from_numpy(rdist[elig]).to(dev)
+    # the eligible rows within BUF/2 of a tree position: the only ones a
+    # support window reads, uploaded once as uint8 (tree positions ascend)
+    if len(anc.seq):
+        base = max(int(elig_rank[min(anc.seq[0].pos, L - 1)]) - BUF // 2, 0)
+        top = min(int(elig_rank[min(anc.seq[-1].pos, L - 1)]) + BUF // 2,
+                  len(elig))
+    else:
+        base = top = 0
+    up = elig[base:top]
+    rows = torch.from_numpy(np.ascontiguousarray(G[up], dtype=np.uint8)).to(
+        dev)
+    daf_dev = torch.from_numpy(daf_all[up]).to(dev)
+    rd_dev = torch.from_numpy(rdist[up]).to(dev)
 
     stats = dict(trees=len(anc.seq), nodes_rearranged=0, sweeps=0,
-                 nodes_visited=0, batches=0, product_s=0.0, loop_s=0.0)
+                 nodes_visited=0, batches=0, fallback_nodes=0,
+                 uploaded_rows=len(up), product_s=0.0, loop_s=0.0)
     num_updated = 0
     for t, mt in enumerate(anc.seq):
         t0 = time.perf_counter()
@@ -362,10 +376,10 @@ def post_process(anc: AncesTree, muts: List[MutationRecord],
         hi = min(center + BUF // 2, len(elig))
         kept = np.nonzero(np.abs(rdist[elig[lo:hi]] - tree_r) < threshold)[0]
         if len(kept) and kept[-1] - kept[0] + 1 == len(kept):
-            sl = slice(lo + int(kept[0]), lo + int(kept[-1]) + 1)
+            sl = slice(lo - base + int(kept[0]), lo - base + int(kept[-1]) + 1)
             block, daf, dist = rows[sl], daf_dev[sl], rd_dev[sl]
         else:
-            idx = torch.from_numpy(lo + kept).to(dev)
+            idx = torch.from_numpy(lo - base + kept).to(dev)
             block, daf = rows.index_select(0, idx), daf_dev.index_select(
                 0, idx)
             dist = rd_dev.index_select(0, idx)
@@ -374,13 +388,15 @@ def post_process(anc: AncesTree, muts: List[MutationRecord],
         if len(kept):
             leaf = tree.leaf_matrix()
             leaf_dev = torch.from_numpy(leaf).to(dev).to(torch.float32)
-            counts = (block @ leaf_dev.t()).to(torch.int32)      # (K, M)
+            counts = (block.to(torch.float32) @ leaf_dev.t()).to(
+                torch.int32)                                     # (K, M)
             nd = torch.from_numpy(leaf.sum(axis=1, dtype=np.int64)).to(dev)
             win = _Window(counts, nd, daf, dist, thr, N, threshold, bp_init)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)     # the product's time ends here
             t1 = time.perf_counter()
             num_updated += _sweeps(tree, coords, win, stats)
+            stats["fallback_nodes"] += win.fallback
         else:
             # no SNP to support anything: the JAX module's node loop breaks
             # at its first node, and the sweep ends without an update

@@ -675,8 +675,8 @@ def optimize_parameters(store: ArtifactStore, c: int,
     end = min(bounds[section + 1] - 1, L - 1, start + max_snps)
     nxt = topology._next_derived_rpos(G, ch.rpos, start, end)
     rpos = np.asarray(ch.rpos, dtype=np.float64)
-    derived = torch.from_numpy(
-        np.ascontiguousarray(G[start:end + 1] == 1)).to(device)
+    car = G[start:end + 1].astype(np.uint8)
+    derived = torch.from_numpy(car == 1).to(device)
     results = []
     for theta in thetas:
         # as NumPy adds a Python float to a float32 matrix
@@ -691,13 +691,13 @@ def optimize_parameters(store: ArtifactStore, c: int,
             nonmap = 0
             total = 0
             for snp in range(start, end + 1):
-                carriers = np.nonzero(G[snp])[0]
                 if snp > start:
                     # carriers advance to their own row and refresh
                     # rpos_prev (anc_builder.cpp:487-495)
-                    dstate.row[carriers] += 1
-                    dstate.rpos_prev[carriers] = rpos[snp]
-                if len(carriers) == 0 or len(carriers) == N:
+                    topology._advance_state(dstate, car, rpos, start, snp,
+                                            snp)
+                daf = int(car[snp - start].sum())
+                if daf == 0 or daf == N:
                     continue
                 mat = assembler.get_matrix(
                     paint, dstate, snp, is_first_or_last=(snp in (0, L - 1)))
@@ -712,7 +712,7 @@ def optimize_parameters(store: ArtifactStore, c: int,
                                   mat - mat.amin(dim=1, keepdim=True), mat)
                 tree = quick_build(mat, theta=theta, seed=seed, device=device)
                 res = TreeMapper(tree, tree.leaf_matrix())(
-                    G[snp:snp + 1].astype(np.uint8))
+                    car[snp - start:snp - start + 1])
                 total += 1
                 if res.is_mapping[0] > 1:
                     nonmap += 1

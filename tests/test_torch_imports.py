@@ -210,11 +210,10 @@ def test_cli_names_the_modes_that_are_not_ported(tmp_path):
     grid = tmp_path / "grid.txt"
     grid.write_text("0.001 0.1\n1\n")
     assert cli.main(["--mode", "OptimizeParameters", "--input", str(grid),
-                     "--max_snps", "40", "-o", out, "--store",
-                     store.outdir, "--device", "cpu", "--seed", "3"]) == 0
+                     "-o", out, "--store", store.outdir, "--device", "cpu",
+                     "--seed", "3"]) == 0
     rows = relate.optimize_parameters(store, 0, thetas=[0.001, 0.1],
-                                      rho_scales=[1.0], max_snps=40, seed=3,
-                                      device="cpu")
+                                      rho_scales=[1.0], seed=3, device="cpu")
     relate.write_opt(str(tmp_path / "want.opt"), rows)
     assert open(out + ".opt").read() == open(tmp_path / "want.opt").read()
     assert len(rows) == 2

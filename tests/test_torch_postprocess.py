@@ -154,6 +154,8 @@ def test_post_process_matches_jax(one_window, N, L, spacing, randomise):
     assert nj == nt > 0
     assert stats["nodes_rearranged"] == nt and stats["trees"] == len(at.seq)
     assert stats["batches"] >= stats["sweeps"] >= len(at.seq)
+    # with unscaled positions every node finds exact support within 10 Mb
+    assert (stats["fallback_nodes"] > 0) == (spacing > 1)
     _same_sequences(aj, mj, at, mt)
 
 
@@ -249,8 +251,13 @@ def _misplaced(store, w, start):
     return bad, len(muts)
 
 
-def test_post_process_chunk_maps_each_window_with_its_own_snps(
-        tmp_path_factory):
+@pytest.fixture(scope="module")
+def two_windows(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("pp_windows")
+    return tmp, _built_store(tmp, 16, 300, 5, 6e-5, noise=0.01)
+
+
+def test_post_process_chunk_maps_each_window_with_its_own_snps(two_windows):
     """Two windows at N = 16 (where the mapper's 0.03 N mismatches allow
     none, so a record on one branch is an exact mapping). The port's
     ``post_process_chunk`` maps record i of window w with SNP start_w + i:
@@ -262,8 +269,7 @@ def test_post_process_chunk_maps_each_window_with_its_own_snps(
     chunk's last SNP: on its output window 1 has records that do not hold
     their SNP. Window 0 (offset 0) is the same in both, but for that last
     tree's end."""
-    tmp = tmp_path_factory.mktemp("pp_windows")
-    built = _built_store(tmp, 16, 300, 5, 6e-5, noise=0.01)
+    tmp, built = two_windows
     ch = built.load_chunk(0)
     bounds = ch.windows.boundaries
     assert ch.windows.num_windows == 2
@@ -291,6 +297,46 @@ def test_post_process_chunk_maps_each_window_with_its_own_snps(
                                                         "muts_0.mut")),
                     at, tancmut.read_mut_short(port.path("chunk_0",
                                                          "muts_0.mut")))
+
+
+@pytest.mark.parametrize("buf", [16, 60], ids=["buf16", "buf60"])
+def test_upload_holds_only_the_rows_the_trees_reach(two_windows, monkeypatch,
+                                                    buf):
+    """Window 1 of the two-window store with a support window of ``buf``
+    eligible SNPs: the port uploads only the rows from BUF/2 before its
+    first tree's position to BUF/2 after its last one's, which starts past
+    the chunk's first eligible row, and every tree's slice is offset by it.
+    The topologies, branch lengths and tree starts equal the JAX module's
+    with the same BUF on the same records (equality). Events and records
+    are not compared: the JAX module maps them with the SNPs ``start`` rows
+    too early (see the test above)."""
+    _, store = two_windows
+    ch = store.load_chunk(0)
+    start = int(ch.windows.boundaries[1])
+    files = (store.path("chunk_0", "trees_1.anc"),
+             store.path("chunk_0", "muts_1.mut"))
+    aj, mj = jancmut.read_anc_bin(files[0]), jancmut.read_mut_short(files[1])
+    at, mt = tancmut.read_anc_bin(files[0]), tancmut.read_mut_short(files[1])
+    monkeypatch.setattr(jpp, "BUF", buf)
+    monkeypatch.setattr(tpp, "BUF", buf)
+    elig = np.nonzero(ch.G.sum(axis=1) > 1)[0]
+    rank = np.searchsorted(elig, [t.pos for t in at.seq])
+    lo = max(rank[0] - buf // 2, 0)
+    hi = min(rank[-1] + buf // 2, len(elig))
+    assert 0 < lo and hi - lo < len(elig)
+    nj = jpp.post_process(aj, mj, ch.G, ch.bp, seed=4)
+    with ttrace.stage("post_process", verbose=False):
+        nt = tpp.post_process(at, mt, ch.G, ch.bp, seed=4, first_snp=start,
+                              device="cpu")
+    (stats,) = ttrace.STAGES[-1]["postprocess"]
+    assert stats["uploaded_rows"] == hi - lo
+    assert nj == nt > 0
+    assert len(aj.seq) == len(at.seq)
+    for a, b in zip(aj.seq, at.seq):
+        assert a.pos == b.pos
+        for f in ("parent", "child_left", "child_right", "branch_length",
+                  "SNP_begin"):
+            assert np.array_equal(getattr(a.tree, f), getattr(b.tree, f)), f
 
 
 # ---------------------------------------------------------------------------
