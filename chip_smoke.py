@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``relate_tpu_torch/csrc``, holds every kernel
-against its plain PyTorch version on the card, drives the port's seven main
-paths through ``relate_tpu_torch.pipeline.relate`` and its CLI and checks
-what they wrote:
+against its plain PyTorch version on the card, drives the port's main
+paths through ``relate_tpu_torch.pipeline.relate``, its CLI and the tools'
+CLI and checks what they wrote:
 
 - ``run_all`` (``Relate --mode All``: MakeChunks -> Paint -> BuildTopology
   -> FindEquivalentBranches -> InferBranchLengths -> CombineSections ->
@@ -31,7 +31,14 @@ what they wrote:
 - OptimizeParameters at N = 1024 on a 2 x 2 grid of theta and rho over the
   first 251 SNPs (the stepping stones, the repaint and one merge scan a
   SNP); the CLI's ``--mode OptimizeParameters --input`` runs at its
-  default on the N = 64 store of ``cpu_vs_card``.
+  default on the N = 64 store of ``cpu_vs_card``;
+- the CoalescentRate tool (``pipeline/tools_cli.py``) on the ``.anc``/
+  ``.mut`` of ``run_all`` at N = 2048: EstimatePopulationSize with two
+  groups, EstimatePopulationSizeEM (3 iterations), SampleBranchLengths
+  (``.timeb``, 5 samples); and ReEstimateBranchLengths under the pairwise
+  group prior on the output of a ``run_all`` of its own at N = 512 and
+  L = 4096 (one proposal an iteration: at N = 2048 its chains take 430.8 s
+  even replayed as CUDA graphs).
 
 Phases, each printing one JSON line: ``device``, ``build``, ``inputs``,
 ``kernels`` (the incremental merge scan also at N = 2 ... 1000, the sizes
@@ -41,13 +48,17 @@ of their cooperative launch; the backward sweep and the capture sweeps
 with the time a row of the longest chain takes, their launch configuration
 (the backward sweep's with its bytes in flight a SM) and the share of rows
 the full plain sweep rescales), ``main_path`` (N = 1024), ``run_all``
-(N = 2048), ``run_all_n4096``, ``run_all_ancient`` (with the age-aware
-scan's ms a build and the kernels it launches), ``anc_unknown``,
+(N = 2048), ``run_all_n512`` and ``coalescent_rate`` (the tool's modes and
+EM iterations in wall seconds, ``coalescence_stats`` a call with its
+kernels and the card against the CPU, the chains' rounds, the device peak;
+``--phases coalescent_rate`` runs both ``run_all`` it needs),
+``run_all_n4096``, ``run_all_ancient`` (with the age-aware scan's ms a
+build and the kernels it launches), ``anc_unknown``,
 ``run_all_postprocess`` (with PostProcess's ms a tree for the product, the
 node loop and the remapping), ``optimize``, ``cpu_vs_card`` (N = 64, with
-two sections through the host topology builder, and PostProcess and
-OptimizeParameters, which must be equal on both devices); then the
-``{"kernels": [...]}`` line,
+two sections through the host topology builder, and PostProcess,
+OptimizeParameters, EstimatePopulationSize and CoalRateForTree, which must
+be equal on both devices); then the ``{"kernels": [...]}`` line,
 the card's name and power limit as ``nvidia-smi`` gives them, and the result
 line. The launch counts are set to 0 just before each path and read just
 after it. Any phase that fails ends the run with a non-zero exit code. Needs
@@ -123,6 +134,12 @@ L2_BYTES = 50e6                # H100 SXM: what is re-read from below this stays
 TIME_BUDGET_S = 560.0          # further sections are built while under this
 SMALLER_MEMORY_GB = 1.25       # gives the N = 1024 panel 3 windows (about 2,900 SNPs)
 OPT_MAX_SNPS = 250             # OptimizeParameters: SNPs 0 ... 250 of section 0
+EM_ITERS = 3                   # EstimatePopulationSizeEM (its default is 10)
+SBL_SAMPLES = 5                # SampleBranchLengths --num_samples
+N_PAIR = 512                   # ReEstimateBranchLengths under the pair
+L_SNPS_PAIR = 4096             # prior: a run_all of its own (at N = 2048
+PAIR_MEMORY_GB = 0.25          # its chains take minutes; PERF.md), 3 windows
+HAP_ROWS_CHECKED = 64          # rows of the --poplabels hap .pairwise.coal read back
 DEV = "cuda"                   # the port's entry points get this device
 
 T_START = time.time()
@@ -1230,7 +1247,7 @@ def age_scan_cost(N, ages):
 
 
 def phase_run_all(G, bp, memory_gb, kernels, phase, scan, ages=None,
-                  postprocess=False):
+                  postprocess=False, hand_over=None):
     """``run_all`` (Relate --mode All) through the port's entry point, with
     every launch count set to 0 just before and read just after, and the
     checks on the ``.anc``/``.mut`` it wrote. ``scan`` names the merge-scan
@@ -1240,7 +1257,8 @@ def phase_run_all(G, bp, memory_gb, kernels, phase, scan, ages=None,
     kernel is launched, and the trees must hold the ancient tips. With
     ``postprocess`` the run post-processes every chunk and associates its
     trees again; every window's records must then map their own SNPs
-    (``check_window_mapping``)."""
+    (``check_window_mapping``). With ``hand_over`` (a path prefix) the
+    ``.anc``/``.mut`` it wrote are copied there before its directory goes."""
     from relate_tpu_torch.io import ancmut
     from relate_tpu_torch.io.chunking import ArtifactStore
     from relate_tpu_torch.pipeline import relate
@@ -1286,6 +1304,9 @@ def phase_run_all(G, bp, memory_gb, kernels, phase, scan, ages=None,
         muts = ancmut.read_mut_final(out + ".mut")
         windows_mapping = (check_window_mapping(phase, store, N)
                            if postprocess else None)
+        if hand_over:
+            for ext in (".anc", ".mut"):
+                shutil.copy(out + ext, hand_over + ext)
 
     if anc.N != N or len(anc.seq) != sum(trees_per_section):
         fail(f"{phase}: .anc has N = {anc.N} and {len(anc.seq)} trees; the "
@@ -1370,6 +1391,304 @@ def phase_run_all(G, bp, memory_gb, kernels, phase, scan, ages=None,
     if launched != tree_builds or tree_builds < len(anc.seq):
         fail(f"{phase}: {launched} merge scans for {tree_builds} tree "
              f"builds and {len(anc.seq)} trees")
+
+
+def write_poplabels(path, N):
+    """Two groups: the first and the second half of the N/2 diploid
+    individuals."""
+    with open(path, "w") as f:
+        f.write("sample population group sex\n")
+        for i in range(N // 2):
+            g = "A" if i < N // 4 else "B"
+            f.write(f"id{i} P{g} {g} NA\n")
+
+
+def max_rel(got, want):
+    """Largest |got - want| / want where want > 0."""
+    nz = want > 0
+    return float((np.abs(got - want)[nz] / want[nz]).max()) if nz.any() \
+        else 0.0
+
+
+def coal_stats_card_vs_cpu(what, trees, spans, epochs, group, host_twin):
+    """``coalescence_stats`` of the same trees on the card, on the CPU (the
+    same level-by-level code on CPU tensors) and, with ``host_twin``,
+    through the plain host twin (``use_device=False``: the reference's
+    recursion, tree by tree and node by node). Counts (integers times whole
+    and half base pairs, exact in float64) must be equal on all of them,
+    the opportunity within rtol 1e-5 of the CPU's and 1e-12 of the twin's.
+    Returns the card's statistics and a record of the comparison (the
+    seconds of each call, the opportunity's largest relative
+    differences)."""
+    from relate_tpu_torch.evaluate import coalrate
+    runs = [("card", dict(device=DEV)), ("cpu", dict(device="cpu"))]
+    if host_twin:
+        runs.append(("host_twin", dict(use_device=False)))
+    out, wall = {}, {}
+    for name, kw in runs:
+        t0 = time.time()
+        out[name] = coalrate.coalescence_stats(trees, spans, epochs, group,
+                                               **kw)
+        wall[name] = round(time.time() - t0, 3)
+    c_d, o_d = out["card"]
+    rel = {}
+    for name, rtol in (("cpu", 1e-5), ("host_twin", 1e-12)):
+        if name not in out:
+            continue
+        c, o = out[name]
+        if not np.array_equal(c_d, c):
+            fail(f"coalescent_rate: {what} coalescence counts differ between"
+                 f" the card and the {name} by up to {np.abs(c_d - c).max()}")
+        if not np.allclose(o_d, o, rtol=rtol, atol=0.0):
+            fail(f"coalescent_rate: {what} coalescence opportunity differs "
+                 f"between the card and the {name} beyond rtol {rtol}")
+        rel[name] = max_rel(o_d, o)
+    return c_d, o_d, dict(counts_equal=True, opportunity_max_rel=rel,
+                          wall_s=wall)
+
+
+def check_rates_file(what, path, rates, names, rows=None):
+    """The ``.coal`` at ``path`` against ``rates`` (E, G, G) from the
+    statistics: its group names, its G * G rows in order, nan where the
+    statistics have no opportunity and a rate within rtol 1e-5 (the
+    file's six digits) elsewhere, every one finite and >= 0. ``rows``: the
+    flat rows read back (None: all)."""
+    E, G = rates.shape[0], rates.shape[1]
+    n = 0
+    with open(path) as f:
+        if f.readline().split() != names or \
+                len(f.readline().split()) != E:
+            fail(f"coalescent_rate: {what} has other group names or epochs")
+        for k, line in enumerate(f):
+            n += 1
+            if rows is not None and k not in rows:
+                continue
+            parts = line.split()
+            want = rates[:, k // G, k % G]
+            got = np.asarray([float(x) for x in parts[2:]])
+            ok = ~np.isnan(want)
+            if [int(parts[0]), int(parts[1])] != [k // G, k % G] or \
+                    not np.array_equal(np.isnan(got), ~ok) or not (
+                        np.isfinite(got[ok]).all() and (got[ok] >= 0).all()
+                        and np.allclose(got[ok], want[ok], rtol=1e-5,
+                                        atol=0)):
+                fail(f"coalescent_rate: {what} row {k} holds rates that are "
+                     "not finite, negative or off the statistics, or nan "
+                     "where they have opportunity")
+    if n != G * G:
+        fail(f"coalescent_rate: {what} has {n} rows, not {G * G}")
+
+
+def check_lengths(what, anc, T):
+    """Every branch length of the ``.anc`` finite and >= 0, T trees."""
+    if len(anc.seq) != T:
+        fail(f"coalescent_rate: {what} has {len(anc.seq)} trees, not {T}")
+    for mt in anc.seq:
+        bl = mt.tree.branch_length
+        if not (np.isfinite(bl).all() and (bl >= 0).all()
+                and bl[:-1].max() > 0):
+            fail(f"coalescent_rate: {what}, tree at {mt.pos}: a branch length"
+                 " that is not finite or negative, or all zero")
+
+
+def pair_iteration_cost(prefix, coal_path, group):
+    """One pair-prior chain batch on the trees of ``prefix`` under the
+    ``.pairwise.coal`` at ``coal_path`` (as ReEstimateBranchLengths sets it
+    up, one chain frozen): ``PairRunner``'s CUDA graphs must give the
+    chains bit for bit that ``pair_chunk`` gives issuing the same blocks
+    kernel by kernel; then ms an iteration of both (CUDA events; the eager
+    steps are host-bound, so this is wall time), and the kernels an
+    iteration launches with the device's busy share under the graphs
+    (``torch.profiler``)."""
+    from relate_tpu_torch.core import mcmc
+    from relate_tpu_torch.evaluate import coalrate, sampling
+    from relate_tpu_torch.pipeline import scripts
+    anc, recs, bp, dist = scripts._load_pair(prefix)[:4]
+    _, epochs, rates = coalrate.read_coal(coal_path)
+    avg_ne, r_norm, e_norm = sampling._normalized_prior(epochs,
+                                                         rates[:, 0, 0])
+    gr = np.where(np.isfinite(rates) & (rates > 0), rates, 0.0) * avg_ne
+    trees = [mt.tree for mt in anc.seq]
+    st = mcmc.chain_static(trees, dist, len(recs), avg_ne, 1.25e-8, e_norm,
+                           r_norm, DEV, gr, group)
+    B, M = st.parent.shape
+    tie = mcmc.Draws(7, DEV).uniform(B, M, high=0.99)
+    state = mcmc.device_init_state(st.parent, anc.N, tie, st.depth)[0]
+    active = torch.ones(B, dtype=torch.bool, device=DEV)
+    active[0] = False
+    C = mcmc.PAIR_CHUNK
+    graphed = mcmc.PairRunner(st, mcmc.Draws(1, DEV))(state, 3 * C + 5,
+                                                      True, active)
+    d = mcmc.Draws(1, DEV)
+    eager = state
+    for k in (C, C, C, 5):
+        eager = mcmc.pair_chunk(st, eager, d.uniform(k, 3, B), True, active)
+    if not all(torch.equal(a, b) for a, b in zip(graphed, eager)):
+        fail("coalescent_rate: the pair prior's CUDA graphs gave other "
+             "chains than its steps issued one by one")
+    runner = mcmc.PairRunner(st, mcmc.Draws(2, DEV))
+    n = 10 * C
+    ms = time_ms(lambda: runner(state, n, True, active), 3) / n
+    ms_eager = time_ms(lambda: mcmc.pair_chunk(
+        st, state, d.uniform(C, 3, B), True, active), 2) / C
+    prof = profiled(lambda: runner(state, n, True, active))
+    return dict(chains=B, nodes=M, graphs_equal_eager=True,
+                ms_an_iteration=round(ms, 4),
+                ms_an_iteration_eager=round(ms_eager, 4),
+                kernels_an_iteration=prof["device_kernels"] / n,
+                device_busy_share=prof["device_busy_share"])
+
+
+def phase_coalescent_rate(prefix, pair_prefix):
+    """The CoalescentRate tool (``relate_tpu_torch.pipeline.tools_cli``) on
+    the card, on ``run_all``'s output ``prefix``.anc/.mut: EstimatePopulation-
+    Size with two groups (``.coal``, ``.pairwise.coal``) and with
+    ``--poplabels hap`` (a rate for every haplotype pair, G = N),
+    EstimatePopulationSizeEM (``EM_ITERS`` iterations), SampleBranchLengths
+    (``--format timeb``, ``SBL_SAMPLES`` samples) and, on ``pair_prefix``
+    (the output at N = ``N_PAIR``), ReEstimateBranchLengths under the
+    pairwise-group prior of its own EstimatePopulationSize. Checks:
+    ``coalescence_stats`` of the trees on the card against the CPU (counts
+    equal, opportunity within rtol 1e-5; with two groups also against the
+    host twin, rtol 1e-12) and against the ``.coal`` files (the hap file in
+    ``HAP_ROWS_CHECKED`` rows); the haplotype pairs' statistics summed
+    equal to the two groups'; every rate finite and >= 0 in each epoch with
+    opportunity (and nan in none other); every sampled age and re-estimated
+    branch length finite and >= 0; the ``.timeb``'s header and records
+    against the ``.mut``. The pair prior's ms an iteration at both widths
+    (``pair_iteration_cost``). No kernel of the port lies on this path: the
+    launch counts must stay 0."""
+    from relate_tpu_torch.evaluate import coalrate, sampling
+    from relate_tpu_torch.io import ancmut
+    from relate_tpu_torch.pipeline import scripts, tools_cli
+    from relate_tpu_torch.utils.trace import STAGES
+
+    modes = {}
+    with tempfile.TemporaryDirectory(prefix="relate_smoke_") as tmp:
+        o = lambda name: os.path.join(tmp, name)  # noqa: E731
+
+        def run(mode, inp, out, *args):
+            t0 = time.time()
+            rc = tools_cli.main(["CoalescentRate", "--mode", mode, "-i", inp,
+                                 "-o", o(out), "--device", DEV, *args])
+            torch.cuda.synchronize()
+            modes[out] = dict(mode=mode, wall_s=round(time.time() - t0, 3))
+            if rc != 0:
+                fail(f"coalescent_rate: {mode} returned {rc}")
+
+        anc, recs, bp, dist = scripts._load_pair(prefix)[:4]
+        N, T = anc.N, len(anc.seq)
+        pl = o("two.poplabels")
+        write_poplabels(pl, N)
+        reset_counts()
+        del STAGES[:]
+        run("EstimatePopulationSize", prefix, "eps", "--poplabels", pl)
+        run("EstimatePopulationSize", prefix, "eps_hap", "--poplabels", "hap")
+        hap_rec = STAGES[-1]
+        run("EstimatePopulationSizeEM", prefix, "em", "--num_iter",
+            str(EM_ITERS), "--poplabels", pl)
+        run("SampleBranchLengths", prefix, "sbl", "--coal", o("eps.coal"),
+            "--format", "timeb", "--num_samples", str(SBL_SAMPLES))
+        pair_anc = ancmut.read_anc_text(pair_prefix + ".anc")
+        pl_pair = o("pair.poplabels")
+        write_poplabels(pl_pair, pair_anc.N)
+        run("EstimatePopulationSize", pair_prefix, "eps_pair", "--poplabels",
+            pl_pair)
+        run("ReEstimateBranchLengths", pair_prefix, "re", "--coal",
+            o("eps_pair.pairwise.coal"), "--poplabels", pl_pair)
+        counts = read_counts()
+        stages = list(STAGES)
+        group = np.repeat((np.arange(N // 2) >= N // 4).astype(np.int64), 2)
+        pair_group = np.repeat((np.arange(pair_anc.N // 2)
+                                >= pair_anc.N // 4).astype(np.int64), 2)
+        pair_cost = {
+            f"N={N}": pair_iteration_cost(prefix, o("eps.pairwise.coal"),
+                                          group),
+            f"N={pair_anc.N}": pair_iteration_cost(
+                pair_prefix, o("eps_pair.pairwise.coal"), pair_group)}
+
+        # the statistics again, on the card, on the CPU and through the
+        # host twin, against the files
+        trees = [mt.tree for mt in anc.seq]
+        spans = coalrate.tree_spans(anc, recs, dist)
+        epochs = coalrate.default_epochs()
+        c, opp, vs_cpu = coal_stats_card_vs_cpu("two groups", trees, spans,
+                                                epochs, group, True)
+        c_hap, opp_hap, vs_cpu_hap = coal_stats_card_vs_cpu(
+            "haplotype pairs", trees, spans, epochs, np.arange(N), False)
+        if not (np.array_equal(c_hap.sum(axis=(1, 2)), c.sum(axis=(1, 2)))
+                and np.allclose(opp_hap.sum(axis=(1, 2)),
+                                opp.sum(axis=(1, 2)), rtol=1e-12, atol=0)):
+            fail("coalescent_rate: the haplotype pairs' statistics do not "
+                 "sum to the two groups'")
+        whole = coalrate.finalize_rates(c.sum(axis=(1, 2)),
+                                        opp.sum(axis=(1, 2)))[:, None, None]
+        check_rates_file("eps.coal", o("eps.coal"), whole, ["0"])
+        check_rates_file("eps_hap.coal", o("eps_hap.coal"), whole, ["0"])
+        check_rates_file("eps.pairwise.coal", o("eps.pairwise.coal"),
+                         coalrate.finalize_rates(c, opp), ["A", "B"])
+        rows = set(np.linspace(0, N * N - 1, HAP_ROWS_CHECKED).astype(
+            int).tolist()) | {N + 1, N * N // 2 + 1}
+        check_rates_file("eps_hap.pairwise.coal", o("eps_hap.pairwise.coal"),
+                         coalrate.finalize_rates(c_hap, opp_hap),
+                         [str(h) for h in range(N)], rows)
+        hap_bytes = os.path.getsize(o("eps_hap.pairwise.coal"))
+        del c_hap, opp_hap
+        _, _, em = coalrate.read_coal(o("em.coal"))
+        timeb = sampling.read_timeb(o("sbl.timeb"))
+        em_anc = ancmut.read_anc_text(o("em.anc"))
+        re_anc = ancmut.read_anc_text(o("re.anc"))
+        mut_rows = ancmut.read_mut_final(prefix + ".mut")
+
+    prof = profiled(lambda: coalrate.coalescence_stats(
+        trees, spans, epochs, group, device=DEV))
+    if not (np.isfinite(em[:, 0, 0]).all() and (em[:, 0, 0] >= 0).all()
+            and em[:, 0, 0].max() > 0):
+        fail("coalescent_rate: the EM's .coal holds rates that are not "
+             "finite or negative, or all zero")
+    check_lengths("the EM's .anc", em_anc, T)
+    check_lengths("ReEstimateBranchLengths' .anc", re_anc, len(pair_anc.seq))
+    mapped = [m for m in mut_rows if len(m["branch"]) <= 1]
+    if len(timeb) != len(mapped) or [r["bp"] for r in timeb] != \
+            [m["pos"] for m in mapped]:
+        fail(f"coalescent_rate: .timeb has {len(timeb)} records; the .mut "
+             f"has {len(mapped)} SNPs on at most one branch")
+    for r in timeb:
+        for k in ("anctimes", "dertimes"):
+            a = r[k]
+            if a.shape[0] != SBL_SAMPLES or r["N"] != N or not (
+                    np.isfinite(a).all() and (a >= 0).all()
+                    and (np.diff(a, axis=1) >= 0).all()):
+                fail(f"coalescent_rate: .timeb record at {r['bp']}: {k} "
+                     f"{a.shape} not {SBL_SAMPLES} sorted finite ages >= 0")
+    if any(counts.values()):
+        fail(f"coalescent_rate: kernels launched on a path without one: "
+             f"{counts}")
+
+    def notes(key):
+        return [dict(stage=r["stage"], **m) for r in stages
+                for m in r.get(key, [])]
+    stats = [m for m in notes("coal_stats") if m["groups"] < N]
+    em_iters = [r["wall_s"] for r in stages
+                if r["stage"].startswith("em_iter")]
+    peak = max(r.get("dev_peak_mb", 0.0) for r in stages if r is not hap_rec)
+    chains = notes("mcmc")
+    emit("coalescent_rate", N=N, trees=T, N_pair=pair_anc.N,
+         trees_pair=len(pair_anc.seq), groups=2, epochs=len(epochs),
+         modes=modes, em_iterations_s=em_iters,
+         coal_stats_calls=len(stats),
+         coal_stats_wall_s=[m["wall_s"] for m in stats],
+         coal_stats_batches=[m["batches"] for m in stats],
+         coal_stats_levels=max(m["levels"] for m in stats),
+         coal_stats_profiled=prof, chains=chains,
+         pair_prior_iteration=pair_cost, card_vs_cpu=vs_cpu,
+         haplotype_pairs=dict(
+             groups=N, coal_stats=hap_rec["coal_stats"],
+             peak_device_memory_gb=round(hap_rec["dev_peak_mb"] / 1e3, 3),
+             pairwise_coal_bytes=hap_bytes, rows_read_back=len(rows),
+             card_vs_cpu=vs_cpu_hap),
+         timeb_records=len(timeb), peak_device_memory_gb=round(
+             peak / 1e3, 3), launches=counts)
 
 
 def check_window_mapping(phase, store, N):
@@ -1706,6 +2025,47 @@ def phase_profile(panels):
          "top = [kernel, device ms, calls]", **rows)
 
 
+def coal_rate_on_both(tmp, prefix, N):
+    """EstimatePopulationSize (two groups) and CoalRateForTree through the
+    CLI on the card and on the CPU, from the same ``prefix``.anc/.mut: the
+    ``.coal`` and ``.pairwise.coal`` bytes and the per-tree counts must be
+    equal; the per-tree opportunity (float64, summed in another order on the
+    card) within rtol 1e-9."""
+    from relate_tpu_torch.pipeline import tools_cli
+    pl = os.path.join(tmp, "two.poplabels")
+    write_poplabels(pl, N)
+    got = {}
+    for dev in (DEV, "cpu"):
+        o = os.path.join(tmp, "coal_" + dev)
+        for mode, extra in (("EstimatePopulationSize", ["--poplabels", pl]),
+                            ("CoalRateForTree", [])):
+            if tools_cli.main(["CoalescentRate", "--mode", mode, "-i", prefix,
+                               "-o", o, "--device", dev] + extra) != 0:
+                fail(f"cpu_vs_card: {mode} failed on {dev}")
+        texts = []
+        for ext in (".coal", ".pairwise.coal"):
+            with open(o + ext) as f:
+                texts.append(f.read())
+        with np.load(o + ".rates.npz") as z:
+            got[dev] = (texts, {k: z[k] for k in z.files})
+    (tc, zc), (th, zh) = got[DEV], got["cpu"]
+    if tc != th:
+        fail("cpu_vs_card: EstimatePopulationSize wrote other .coal bytes on "
+             "the card than on the CPU")
+    if not (np.array_equal(zc["counts"], zh["counts"])
+            and np.array_equal(zc["epochs"], zh["epochs"])
+            and np.allclose(zc["opportunity"], zh["opportunity"], rtol=1e-9,
+                            atol=0.0)):
+        fail("cpu_vs_card: CoalRateForTree's counts or opportunity differ "
+             "between the card and the CPU")
+    nz = zh["opportunity"] > 0
+    return dict(coal_bytes_equal=True, rate_for_tree_counts_equal=True,
+                trees=int(zh["counts"].shape[0]),
+                rate_for_tree_opportunity_max_rel=float(
+                    (np.abs(zc["opportunity"] - zh["opportunity"])[nz]
+                     / zh["opportunity"][nz]).max()))
+
+
 def phase_cpu_vs_card():
     """All seven stages at N = 64 on the card (kernels) and on the CPU
     (plain versions) from the same files, through the entry points that
@@ -1830,6 +2190,7 @@ def phase_cpu_vs_card():
             cli_opt = f.read()
         with open(os.path.join(tmp, "want.opt")) as f:
             want_opt = f.read()
+        coal = coal_rate_on_both(tmp, os.path.join(tmp, "final_cpu"), N)
     for spread in (1, 400):
         (nc, fc, *card), (nh, fh, *host) = pp[DEV, spread], pp["cpu", spread]
         if nc != nh or nc <= 0:
@@ -1908,6 +2269,7 @@ def phase_cpu_vs_card():
         if not rel <= 0.25:
             fail(f"cpu_vs_card: mean total branch length differs by {rel}")
     emit("cpu_vs_card", N=N, L=int(G.shape[0]), windows=Wc,
+         coalescent_rate=coal,
          checkpoint_max_abs_err_normalised=worst, trees_card=trees_c,
          trees_cpu=trees_h, tree_counts=note,
          host_builder_trees_card=host_c, host_builder_trees_cpu=host_h,
@@ -1926,9 +2288,9 @@ def phase_cpu_vs_card():
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="kernels,main_path,run_all,run_all_n4096,"
-                            "run_all_ancient,anc_unknown,run_all_postprocess,"
-                            "optimize,cpu_vs_card")
+                    default="kernels,main_path,run_all,coalescent_rate,"
+                            "run_all_n4096,run_all_ancient,anc_unknown,"
+                            "run_all_postprocess,optimize,cpu_vs_card")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -1947,7 +2309,7 @@ def main():
     panels = {}
     uses_panels = {"kernels", "main_path", "run_all", "run_all_n4096",
                    "run_all_ancient", "anc_unknown", "run_all_postprocess",
-                   "optimize", "profile"}
+                   "optimize", "profile", "coalescent_rate"}
     for N in (N_HAP, N_LARGE, N_INC) if phases & uses_panels else ():
         G, bp = make_panel(N, L_SNPS_INC if N == N_INC else L_SNPS)
         memory_gb = memory_auto
@@ -1970,10 +2332,21 @@ def main():
         torch.cuda.empty_cache()
     if "main_path" in phases:
         phase_main_path(*panels[N_HAP], kernels)
-    if "run_all" in phases:
+    # run_all's N = 2048 output is the coalescent_rate phase's input
+    hand = tempfile.TemporaryDirectory(prefix="relate_smoke_coal_")
+    handed = os.path.join(hand.name, f"run_all_n{N_LARGE}")
+    if phases & {"run_all", "coalescent_rate"}:
         phase_run_all(*panels[N_LARGE], kernels, "run_all",
-                      "merge_scan_large")
+                      "merge_scan_large", hand_over=handed)
         torch.cuda.empty_cache()
+    if "coalescent_rate" in phases:
+        pair = os.path.join(hand.name, f"run_all_n{N_PAIR}")
+        phase_run_all(*make_panel(N_PAIR, L_SNPS_PAIR), PAIR_MEMORY_GB,
+                      kernels, f"run_all_n{N_PAIR}", "merge_scan",
+                      hand_over=pair)
+        phase_coalescent_rate(handed, pair)
+        torch.cuda.empty_cache()
+    hand.cleanup()
     if "run_all_n4096" in phases:
         phase_run_all(*panels[N_INC], kernels, "run_all_n4096",
                       "merge_scan_inc")

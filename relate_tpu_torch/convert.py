@@ -86,17 +86,21 @@ def tree_from_numpy(parent, child_left, child_right, branch_length=None,
 
 def chain_static_from_numpy(parent, child_left, child_right, num_events,
                             mut_rate, kc2_pos, epochs, rates, cumR, depth,
+                            F=None, Rg=None, cumIRg=None,
                             device=None) -> ChainStatic:
     """The port's ``ChainStatic`` from the fields of the JAX one (index
-    arrays become int64 tensors, the rest float32)."""
+    arrays become int64 tensors, the rest float32; the pairwise prior's
+    fields stay None where they are)."""
     device = resolve_device(device)
     i64 = lambda a: _tensor(a, np.int64, device)      # noqa: E731
-    f32 = lambda a: _tensor(a, np.float32, device)    # noqa: E731
+    f32 = lambda a: None if a is None else _tensor(   # noqa: E731
+        a, np.float32, device)
     return ChainStatic(
         parent=i64(parent), child_left=i64(child_left),
         child_right=i64(child_right), num_events=f32(num_events),
         mut_rate=f32(mut_rate), kc2_pos=f32(kc2_pos), epochs=f32(epochs),
-        rates=f32(rates), cumR=f32(cumR), depth=i64(depth))
+        rates=f32(rates), cumR=f32(cumR), depth=i64(depth), F=f32(F),
+        Rg=f32(Rg), cumIRg=f32(cumIRg))
 
 
 def chain_state_from_numpy(coords, order, sorted_idx, cs, ssum, scomp, count,

@@ -8,6 +8,7 @@ Formats (behavioral reference, not a code port):
   (``data.hpp:135-143``).
 - genetic map: header + ``pos rate gen_pos(cM)`` rows (``data.cpp:591-625``).
 - ``.dist``: header + ``bp dist`` rows (``data.cpp:401-418``).
+- ``.poplabels``: header + ``ID POP GROUP SEX`` (``include/src/sample.cpp``).
 
 All parsers transparently handle gzip by magic-byte sniffing, like the
 reference's popen-gunzip wrapper (``data.cpp:6-67``) but in-process.
@@ -16,7 +17,7 @@ from __future__ import annotations
 
 import gzip
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -237,3 +238,38 @@ def read_sample_ages(path: str, N: int) -> Optional[np.ndarray]:
     if len(vals) < N:
         return None
     return np.asarray(vals[:N], dtype=np.float64)
+
+
+@dataclass
+class PopLabels:
+    ids: List[str]
+    pop: List[str]
+    group: List[str]
+    sex: List[str]
+    groups: List[str] = field(default_factory=list)   # unique group names
+    group_of_haplotype: np.ndarray = None             # (N,) int
+
+    @property
+    def num_groups(self) -> int:
+        return len(self.groups)
+
+
+def read_poplabels(path: str) -> PopLabels:
+    """Parse .poplabels (``include/src/sample.cpp``): header + ID POP GROUP
+    SEX. Each individual contributes 2 haplotypes (the reference's diploid
+    Sample convention); groups are numbered in order of first appearance."""
+    ids, pops, grps, sexs = [], [], [], []
+    with smart_open(path) as f:
+        next(f)
+        for line in f:
+            parts = line.split()
+            if not parts:
+                continue
+            ids.append(parts[0])
+            pops.append(parts[1] if len(parts) > 1 else "NA")
+            grps.append(parts[2] if len(parts) > 2 else "NA")
+            sexs.append(parts[3] if len(parts) > 3 else "NA")
+    groups = list(dict.fromkeys(grps))
+    index = {g: i for i, g in enumerate(groups)}
+    goh = np.repeat(np.asarray([index[g] for g in grps], dtype=np.int32), 2)
+    return PopLabels(ids, pops, grps, sexs, groups, goh)

@@ -1,0 +1,176 @@
+"""Python equivalents of the reference's shell scripts of the
+coalescence-rate tools (``scripts/``): EstimatePopulationSize.sh,
+SampleBranchLengths.sh and ReEstimateBranchLengths.sh.
+
+Counterpart of the same functions of ``relate_tpu/pipeline/scripts.py``.
+The shell scripts orchestrate binaries through temp files; here each one
+is a plain function over the in-memory tree sequence, on ``device`` (None:
+the CUDA card). The estimators are called through their modules
+(``coalrate.*``, ``sampling.*``), so a caller can replace them.
+"""
+from __future__ import annotations
+
+import sys
+from typing import Optional
+
+import numpy as np
+
+from ..core.topology import MutationRecord
+from ..evaluate import coalrate, sampling
+from ..io import ancmut, extract
+from ..io import haps as hio
+from ..utils.devmem import resolve_device
+
+
+def _load_pair(prefix: str):
+    """(anc, records, bp, dist, rsid, alleles) of ``prefix``.anc/.mut."""
+    anc = ancmut.read_anc_text(prefix + ".anc")
+    md = ancmut.read_mut_final(prefix + ".mut")
+    recs = [MutationRecord(tree=m["tree"], branch=m["branch"],
+                           flipped=bool(m["flipped"]),
+                           age_begin=m["age_begin"], age_end=m["age_end"])
+            for m in md]
+    bp = np.asarray([m["pos"] for m in md])
+    dist = np.asarray([m["dist"] for m in md], dtype=np.float64)
+    rsid = [m["rsid"] for m in md]
+    alleles = [m["alleles"] for m in md]
+    return anc, recs, bp, dist, rsid, alleles
+
+
+def _dump_pair(prefix: str, anc, recs, bp, dist, rsid, alleles):
+    """Write ``prefix``.anc/.mut, the mutation ages from the trees."""
+    ancmut.get_age(anc, recs)
+    rows = []
+    for snp, m in enumerate(recs):
+        br = " ".join(str(b) for b in m.branch)
+        rows.append(
+            f"{snp};{bp[snp]};{int(dist[snp])};{rsid[snp]};{m.tree};{br};"
+            f"{1 if len(m.branch) > 1 else 0};{int(m.flipped)};"
+            f"{ancmut._fmt_g(m.age_begin)};{ancmut._fmt_g(m.age_end)};"
+            f"{alleles[snp]};")
+    ancmut.write_anc_text(prefix + ".anc", anc)
+    ancmut.write_mut_final(prefix + ".mut", rows)
+
+
+def estimate_population_size(input_prefix: str, output_prefix: str,
+                             mu: float = 1.25e-8,
+                             years_per_gen: float = 28.0,
+                             poplabels_path: Optional[str] = None,
+                             bins: Optional[tuple] = None,
+                             num_iter: int = 10, seed: int = 1,
+                             threshold_frac: float = 0.5,
+                             reestimate_final: bool = True,
+                             verbose: bool = True, device=None):
+    """EstimatePopulationSize.sh: joint EM over coalescence rates and branch
+    lengths; writes <output>.coal (+ by-group pairwise if poplabels) and the
+    re-estimated <output>.anc/.mut."""
+    device = resolve_device(device)
+    anc, recs, bp, dist, rsid, alleles = _load_pair(input_prefix)
+    if threshold_frac > 0:
+        anc, recs = extract.remove_trees_with_few_mutations(
+            anc, recs, threshold_frac)
+    group_of_hap = None
+    names = None
+    if poplabels_path:
+        pl = hio.read_poplabels(poplabels_path)
+        group_of_hap = pl.group_of_haplotype[: anc.N]
+        names = pl.groups
+    epochs = coalrate.epochs_from_bins(*bins, years_per_gen) if bins \
+        else coalrate.default_epochs(years_per_gen)
+    epochs, rates, whole = coalrate.estimate_popsize_em(
+        anc, recs, dist, mu=mu, epochs=epochs, num_iter=num_iter,
+        seed=seed, group_of_hap=group_of_hap, verbose=verbose,
+        device=device)
+    coalrate.write_coal(output_prefix + ".coal", epochs, whole, ["0"])
+    if verbose:
+        # terminal popsize plot (plot.cpp via FinalizePopulationSize.cpp:2)
+        from ..utils.asciiplot import ascii_plot
+        with np.errstate(divide="ignore"):
+            ne = np.where(np.asarray(whole) > 0,
+                          0.5 / np.maximum(np.asarray(whole), 1e-300), 0.0)
+        sys.stderr.write(ascii_plot(epochs, ne))
+    if group_of_hap is not None:
+        coalrate.write_coal(output_prefix + ".pairwise.coal", epochs,
+                            rates, names)
+    if reestimate_final:
+        # final pass mirrors the .sh: posterior-MEAN re-estimate of the
+        # ORIGINAL (unfiltered) trees under the final .coal
+        anc_f, recs_f, bp_f, dist_f, rsid_f, alleles_f = \
+            _load_pair(input_prefix)
+        sampling.reestimate_branch_lengths(anc_f, recs_f, dist_f, mu,
+                                           epochs, whole,
+                                           seed=seed + num_iter,
+                                           device=device)
+        _dump_pair(output_prefix, anc_f, recs_f, bp_f, dist_f, rsid_f,
+                   alleles_f)
+    return epochs, rates
+
+
+def sample_branch_lengths(input_prefix: str, output_prefix: str,
+                          coal_path: str, mu: float = 1.25e-8,
+                          num_samples: int = 100,
+                          first_bp: Optional[int] = None,
+                          last_bp: Optional[int] = None,
+                          fmt: str = "anc", seed: int = 1, device=None):
+    """SampleBranchLengths.sh: posterior branch-length samples under a .coal
+    prior; fmt in {anc, newick, timeb}."""
+    device = resolve_device(device)
+    anc, recs, bp, dist, rsid, alleles = _load_pair(input_prefix)
+    if first_bp is not None and last_bp is not None:
+        anc, recs, (lo, hi) = extract.anc_mut_for_subregion(
+            anc, recs, bp, first_bp, last_bp)
+        bp, dist = bp[lo:hi + 1], dist[lo:hi + 1]
+        rsid, alleles = rsid[lo:hi + 1], alleles[lo:hi + 1]
+        extract.extract_dist_from_mut(
+            [{"pos": bp[i], "dist": int(dist[i])} for i in range(len(bp))],
+            output_prefix + ".dist")
+    names, epochs, rates = coalrate.read_coal(coal_path)
+    samples = sampling.sample_branch_lengths(
+        anc, recs, dist, mu, epochs, rates[:, 0, 0], num_samples=num_samples,
+        seed=seed, device=device)
+    if fmt == "newick":
+        with open(output_prefix + ".newick", "w") as f:
+            for t in range(len(anc.seq)):
+                for s in range(num_samples):
+                    tr = anc.seq[t].tree.copy()
+                    tr.branch_length = samples[s, t]
+                    f.write(tr.to_newick() + "\n")
+    elif fmt == "timeb":
+        sampling.write_timeb(output_prefix + ".timeb", anc, samples,
+                             muts=recs, bp=bp, alleles=alleles)
+    else:
+        # mean over samples into one anc/mut (plus all samples as .npy)
+        mean_bl = samples.mean(axis=0)
+        for i, mt in enumerate(anc.seq):
+            mt.tree.branch_length = mean_bl[i]
+        _dump_pair(output_prefix, anc, recs, bp, dist, rsid, alleles)
+        np.save(output_prefix + "_samples.npy", samples)
+    return samples
+
+
+def reestimate_branch_lengths(input_prefix: str, output_prefix: str,
+                              coal_path: str, mu: float = 1.25e-8,
+                              seed: int = 1,
+                              poplabels_path: Optional[str] = None,
+                              device=None):
+    """ReEstimateBranchLengths.sh: whole-chromosome re-estimation under a
+    .coal prior; with ``poplabels_path`` the prior uses pairwise group
+    rates (ReEstimateBranchLengths.cpp:144-232 with --poplabels)."""
+    device = resolve_device(device)
+    anc, recs, bp, dist, rsid, alleles = _load_pair(input_prefix)
+    names, epochs, rates = coalrate.read_coal(coal_path)
+    memberships = None
+    if poplabels_path is not None:
+        pl = hio.read_poplabels(poplabels_path)
+        memberships = pl.group_of_haplotype[: anc.N]
+        if rates.shape[1] != pl.num_groups:
+            raise SystemExit(
+                f"coal file has {rates.shape[1]} groups, poplabels "
+                f"{pl.num_groups}")
+    sampling.reestimate_branch_lengths(anc, recs, dist, mu, epochs,
+                                       rates[:, 0, 0], seed=seed,
+                                       group_rates=(rates if memberships
+                                                    is not None else None),
+                                       memberships=memberships,
+                                       device=device)
+    _dump_pair(output_prefix, anc, recs, bp, dist, rsid, alleles)

@@ -40,7 +40,9 @@ def test_every_module_imports_without_jax():
     names = _module_names()
     assert len(names) >= 24
     for new in ("core.branch_association", "core.branch_association_device",
-                "core.mcmc", "ops.merge_scan_inc", "pipeline.postprocess"):
+                "core.mcmc", "ops.merge_scan_inc", "pipeline.postprocess",
+                "evaluate.coalrate", "evaluate.sampling", "pipeline.scripts",
+                "pipeline.tools_cli", "io.extract"):
         assert "relate_tpu_torch." + new in names
     code = (
         "import importlib, sys\n"

@@ -157,10 +157,11 @@ def test_unported_priors_raise_and_cap_is_a_memory_bound():
     trees = [convert.tree_from_numpy(t.parent, t.child_left, t.child_right)
              for t in _tree_batch(2)]
     dist = np.ones(L + 1)
-    with pytest.raises(NotImplementedError, match="evaluate"):
-        tm.run_mcmc(trees, dist, L + 1, device="cpu",
-                    group_R=np.ones((1, 2, 2)), memberships=np.zeros(N, int),
-                    epochs=np.zeros(1))
+    # the pairwise-group prior runs (``test_torch_mcmc_pair.py``)
+    bl = tm.run_mcmc(trees, dist, L + 1, device="cpu",
+                     group_R=np.ones((1, 2, 2)), memberships=np.arange(N) % 2,
+                     epochs=np.zeros(1), max_rounds=3)
+    assert bl.shape == (2, M) and np.isfinite(bl).all() and (bl >= 0).all()
     # ancient samples run (``test_run_mcmc_with_sample_ages_agrees_with_jax``)
     bl = tm.run_mcmc(trees, dist, L + 1, device="cpu",
                      sample_ages=np.full(N, 10.0), max_rounds=3)
