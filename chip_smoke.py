@@ -38,7 +38,14 @@ CLI and checks what they wrote:
   (``.timeb``, 5 samples); and ReEstimateBranchLengths under the pairwise
   group prior on the output of a ``run_all`` of its own at N = 512 and
   L = 4096 (one proposal an iteration: at N = 2048 its chains take 430.8 s
-  even replayed as CUDA graphs).
+  even replayed as CUDA graphs);
+- the Selection, MutationRate and Extract tools on the same N = 2048
+  output, with a fasta of random bases: Selection in its five modes and
+  DetectSelection, MutationRate Avg, WithContext,
+  ForCategoryForPopForChromosome and MutationDensity, Extract
+  SubTreesForSubpopulation, AncMutForSubregion and
+  RemoveTreesWithFewMutations, Selection on the subregion; then the
+  selection scan's tails alone at a chromosome's size (50,000 SNPs).
 
 Phases, each printing one JSON line: ``device``, ``build``, ``inputs``,
 ``kernels`` (the incremental merge scan also at N = 2 ... 1000, the sizes
@@ -52,6 +59,10 @@ the full plain sweep rescales), ``main_path`` (N = 1024), ``run_all``
 EM iterations in wall seconds, ``coalescence_stats`` a call with its
 kernels and the card against the CPU, the chains' rounds, the device peak;
 ``--phases coalescent_rate`` runs both ``run_all`` it needs),
+``selection_mutation_rate`` (each mode's wall seconds, the rows, chunks and
+ms of ``log_pvalue_batch`` on the card and the CPU, ``compute_freq_lin``'s
+ms a tree on both, the tails of 50,000 SNPs on the card, the device peak;
+the card against the CPU),
 ``run_all_n4096``, ``run_all_ancient`` (with the age-aware scan's ms a
 build and the kernels it launches), ``anc_unknown``,
 ``run_all_postprocess`` (with PostProcess's ms a tree for the product, the
@@ -140,6 +151,7 @@ N_PAIR = 512                   # ReEstimateBranchLengths under the pair
 L_SNPS_PAIR = 4096             # prior: a run_all of its own (at N = 2048
 PAIR_MEMORY_GB = 0.25          # its chains take minutes; PERF.md), 3 windows
 HAP_ROWS_CHECKED = 64          # rows of the --poplabels hap .pairwise.coal read back
+CHROMOSOME_SNPS = 50_000       # log_pvalue_batch alone: the tails of this many SNPs
 DEV = "cuda"                   # the port's entry points get this device
 
 T_START = time.time()
@@ -1691,6 +1703,257 @@ def phase_coalescent_rate(prefix, pair_prefix):
              peak / 1e3, 3), launches=counts)
 
 
+def write_fasta(path, length):
+    """A fasta of ``length`` random bases from ``SEED``, 60 a line."""
+    rng = np.random.default_rng(SEED)
+    seq = np.asarray(list("ACGT"))[rng.integers(0, 4, length)]
+    with open(path, "w") as f:
+        f.write(">1\n")
+        for s in range(0, length, 60):
+            f.write("".join(seq[s: s + 60]) + "\n")
+
+
+def same_files(what, a, b, suffixes):
+    for s in suffixes:
+        with open(a + s, "rb") as f, open(b + s, "rb") as g:
+            if f.read() != g.read():
+                fail(f"selection_mutation_rate: {what}: the {s} written on "
+                     "the card differs from the one written on the CPU")
+
+
+def timed(fn):
+    """(result, wall ms) of fn() on the card, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.time() - t0) * 1e3
+
+
+def phase_selection_mutation_rate(prefix):
+    """The Selection, MutationRate and Extract tools
+    (``relate_tpu_torch.pipeline.tools_cli``) on the card, on ``run_all``'s
+    output ``prefix``.anc/.mut at N = 2048, with a fasta of random bases
+    from ``SEED`` over the panel (its alleles are all A/T, so the contexts
+    fall into 16 categories): Selection in its five modes and
+    ``scripts.detect_selection``; MutationRate Avg, WithContext,
+    ForCategoryForPopForChromosome (half of the individuals) and
+    MutationDensity; Extract SubTreesForSubpopulation, AncMutForSubregion
+    and RemoveTreesWithFewMutations; Selection again on the subregion.
+    Checks: the card against the CPU (``freq_lin_arrays`` equal,
+    p-values within 1e-9, the .freq/.lin/.qual/.freqdiff bytes equal, rSDS
+    and mutation/opportunity within rtol 1e-12); every defined log10 p-value
+    finite and <= 0 (1 where the tail is undefined), freq <= lin in every
+    epoch, lin non-increasing back in time, the spread mutations summing to
+    the mapped SNPs with age_end > 0, rates finite and >= 0 wherever there
+    is opportunity; no kernel of the port launched. Then
+    ``log_pvalue_batch`` alone on the card on the phase's tails tiled to
+    ``CHROMOSOME_SNPS`` SNPs, a 1 % subset held against the CPU."""
+    from relate_tpu_torch.evaluate import coalrate, mutrate, selection
+    from relate_tpu_torch.io import haps as hio
+    from relate_tpu_torch.pipeline import scripts, tools_cli
+    from relate_tpu_torch.utils.trace import STAGES, stage
+
+    modes = {}
+    with tempfile.TemporaryDirectory(prefix="relate_smoke_sel_") as tmp:
+        o = lambda name: os.path.join(tmp, name)  # noqa: E731
+
+        def run(tool, mode, inp, out, *args, device=DEV):
+            t0 = time.time()
+            rc = tools_cli.main([tool, "--mode", mode, "-i", inp, "-o",
+                                 o(out), "--device", device, *args])
+            torch.cuda.synchronize()
+            modes[out] = dict(tool=tool, mode=mode, device=device,
+                              wall_s=round(time.time() - t0, 3))
+            if rc != 0:
+                fail(f"selection_mutation_rate: {tool} {mode} returned {rc}")
+
+        anc, recs, bp, dist, rsid, alleles = scripts._load_pair(prefix)
+        N, T, L = anc.N, len(anc.seq), len(recs)
+        fasta = o("anc.fa")
+        write_fasta(fasta, int(bp[-1]) + 2)
+        anc_seq = hio.read_fasta(fasta)
+        pl = o("two.poplabels")
+        write_poplabels(pl, N)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        del STAGES[:]
+        for mode in tools_cli.SELECTION_MODES:
+            run("Selection", mode, prefix, f"sel_{mode}")
+        t0 = time.time()
+        with stage("detect_selection", verbose=False):
+            scripts.detect_selection(prefix, o("ds"), device=DEV)
+        modes["detect_selection"] = dict(wall_s=round(time.time() - t0, 3))
+        run("MutationRate", "Avg", prefix, "mr_avg")
+        run("MutationRate", "WithContext", prefix, "mr_ctx", "--ancestor",
+            fasta)
+        run("MutationRate", "ForCategoryForPopForChromosome", prefix,
+            "mr_pop", "--ancestor", fasta, "--poplabels", pl,
+            "--pop_of_interest", "A")
+        run("MutationRate", "MutationDensity", prefix, "mr_den",
+            "--sample_id", "5")
+        run("Extract", "SubTreesForSubpopulation", prefix, "ex_sub",
+            "--poplabels", pl, "--pop_of_interest", "A")
+        run("Extract", "AncMutForSubregion", prefix, "ex_reg", "--first_bp",
+            str(int(bp[L // 4])), "--last_bp", str(int(bp[L // 2])))
+        run("Extract", "RemoveTreesWithFewMutations", prefix, "ex_few")
+        run("Selection", "Selection", o("ex_reg"), "sel_reg")
+        counts = read_counts()
+        stages = list(STAGES)
+        peak = max(r.get("dev_peak_mb", 0.0) for r in stages)
+        # the same modes on the CPU: the files must hold the same bytes
+        for mode, out, sfx in (("Frequency", "sel_Frequency", (".freq",
+                                                                ".lin")),
+                               ("Quality", "sel_Quality", (".qual",)),
+                               ("FreqDiff", "sel_FreqDiff", (".freqdiff",))):
+            run("Selection", mode, prefix, out + "_cpu", device="cpu")
+            same_files(mode, o(out), o(out + "_cpu"), sfx)
+        with open(o("sel_Selection.sele")) as f:
+            sele_rows = sum(1 for _ in f) - 1
+        sub = scripts._load_pair(o("ex_sub"))[0]
+        reg = scripts._load_pair(o("ex_reg"))
+        few = scripts._load_pair(o("ex_few"))[0]
+        with open(o("sel_reg.sele")) as f:
+            sele_reg_rows = sum(1 for _ in f) - 1
+        bycat = np.load(o("mr_ctx_bycat.npz"))
+        avg = np.load(o("mr_avg_avg.npz"))
+        den = np.load(o("mr_den.density.npz"))
+
+    epochs = coalrate.default_epochs()
+    if not (sub.N == N // 2 and len(sub.seq) == T and len(reg[1]) ==
+            L // 2 - L // 4 + 1 and 0 < len(few.seq) <= T):
+        fail("selection_mutation_rate: an Extract output has the wrong "
+             f"size: {sub.N} haplotypes, {len(reg[1])} SNPs, "
+             f"{len(few.seq)} trees")
+    if sele_reg_rows <= 0 or sele_reg_rows >= sele_rows:
+        fail(f"selection_mutation_rate: the subregion's .sele has "
+             f"{sele_reg_rows} rows, the whole {sele_rows}")
+
+    # compute_freq_lin on both devices
+    a, ms_fl = timed(lambda: selection.freq_lin_arrays(anc, recs, epochs,
+                                                       DEV))
+    t0 = time.time()
+    a_cpu = selection.freq_lin_arrays(anc, recs, epochs, "cpu")
+    ms_fl_cpu = (time.time() - t0) * 1e3
+    for k in a:
+        if not np.array_equal(a[k], a_cpu[k]):
+            fail(f"selection_mutation_rate: compute_freq_lin's {k} differs "
+                 "between the card and the CPU")
+    freq, lin = a["freq"], a["lin"]
+    if not ((freq <= lin).all() and (np.diff(lin, axis=1) >= 0).all()):
+        fail("selection_mutation_rate: a SNP has more carriers than "
+             "lineages, or lineages that grow back in time")
+
+    # the tails: the card against the CPU on the same rows
+    logF = np.zeros(N + 1)
+    logF[1:] = np.cumsum(np.log(np.arange(1, N + 1)))
+    k, fk, fN, live = selection.selection_tails(a)
+    with stage("pvalues_card", verbose=False):
+        pv, ms_pv = timed(lambda: selection.log_pvalue_batch(
+            k, fk, N, fN, logF, device=DEV))
+    rec_pv = STAGES.pop()["log_pvalue"][0]
+    t0 = time.time()
+    pv_cpu = selection.log_pvalue_batch(k, fk, N, fN, logF, device="cpu")
+    ms_pv_cpu = (time.time() - t0) * 1e3
+    defined = (fk >= 2) & (k != -1) & (fN < N) & (fk < k) & (fN > 0)
+    pv_err = float(np.abs(pv - pv_cpu).max())
+    if not pv_err <= 1e-9:
+        fail(f"selection_mutation_rate: p-values differ between the card "
+             f"and the CPU by {pv_err}")
+    if not (np.isfinite(pv).all() and (pv[defined] <= 0).all()
+            and (pv[~defined] == 1).all()):
+        fail("selection_mutation_rate: a log10 p-value that is not finite, "
+             "above 0, or not 1 where the tail is undefined")
+
+    # SDS and the mutation rate on both devices
+    sds_d, ms_sds = timed(lambda: selection.sds(anc, recs, bp, rsid,
+                                                device=DEV))
+    sds_c = selection.sds(anc, recs, bp, rsid, device="cpu")
+    r_d = np.asarray([r["rSDS"] for r in sds_d if r is not None])
+    r_c = np.asarray([r["rSDS"] for r in sds_c if r is not None])
+    if [r is None for r in sds_d] != [r is None for r in sds_c] or \
+            not np.allclose(r_d, r_c, rtol=1e-12, atol=0):
+        fail("selection_mutation_rate: rSDS differs between the card and "
+             "the CPU beyond rtol 1e-12")
+    cats, names = mutrate.categorize_snps(
+        bp, [x.split("/")[0] for x in alleles],
+        [x.split("/")[1] for x in alleles], anc_seq)
+    mr, mr_ms = {}, {}
+    for dev in (DEV, "cpu"):
+        mr[dev], mr_ms[dev] = timed(lambda: mutrate.avg_mutation_rate(
+            anc, recs, dist, epochs, cats, len(names), device=dev))
+    for i, what in enumerate(("mutation", "opportunity")):
+        if not np.allclose(mr[DEV][i], mr["cpu"][i], rtol=1e-12, atol=0):
+            fail(f"selection_mutation_rate: the {what} differs between the "
+                 "card and the CPU beyond rtol 1e-12")
+        if not np.allclose(bycat[what], mr["cpu"][i], rtol=1e-12, atol=0):
+            fail(f"selection_mutation_rate: WithContext's {what} is off the "
+                 "CPU's")
+    sel = np.asarray([len(m.branch) == 1 and m.age_end > 0 for m in recs])
+    mapped, mapped_cat = int(sel.sum()), int((sel & (cats >= 0)).sum())
+    if not (abs(avg["mutation"].sum() - mapped) <= 1e-9 * mapped
+            and abs(bycat["mutation"].sum() - mapped_cat) <= 1e-9 * mapped):
+        fail(f"selection_mutation_rate: the spread mutations sum to "
+             f"{avg['mutation'].sum()} and {bycat['mutation'].sum()}, not "
+             f"the {mapped} mapped SNPs ({mapped_cat} with a category)")
+    for what, m, opp in (("Avg", avg["mutation"], avg["opportunity"]),
+                         ("WithContext", bycat["mutation"],
+                          bycat["opportunity"])):
+        ok = opp > 0
+        r = m[ok] / opp[ok]
+        if not (np.isfinite(r).all() and (r >= 0).all() and ok.any()):
+            fail(f"selection_mutation_rate: {what} has rates that are not "
+                 "finite or negative where there is opportunity")
+    if not (np.isfinite(den["mutation"]).all() and den["mutation"].sum() > 0):
+        fail("selection_mutation_rate: MutationDensity counted nothing")
+    if any(counts.values()):
+        fail(f"selection_mutation_rate: kernels launched on a path without "
+             f"one: {counts}")
+
+    # log_pvalue_batch alone at a chromosome's size
+    n_live = int(live.sum())
+    reps = -(-CHROMOSOME_SNPS // n_live)
+    rows = CHROMOSOME_SNPS * (len(epochs) + 2)
+    kk, ffk, ffN = (np.tile(x, reps)[:rows] for x in (k, fk, fN))
+    torch.cuda.reset_peak_memory_stats()
+    with stage("pvalues_chromosome", verbose=False):
+        big, ms_big = timed(lambda: selection.log_pvalue_batch(
+            kk, ffk, N, ffN, logF, device=DEV))
+    rec_big = STAGES.pop()["log_pvalue"][0]
+    peak_big = torch.cuda.max_memory_allocated() / 1e9
+    pick = np.arange(0, rows, 100)
+    sub_cpu = selection.log_pvalue_batch(kk[pick], ffk[pick], N, ffN[pick],
+                                         logF, device="cpu")
+    big_err = float(np.abs(big[pick] - sub_cpu).max())
+    if not big_err <= 1e-9:
+        fail(f"selection_mutation_rate: the chromosome-size tails differ "
+             f"from the CPU by {big_err}")
+    emit("selection_mutation_rate", N=N, trees=T, snps=L, epochs=len(epochs),
+         modes=modes, usable_snps=len(a["snp"]), live_snps=n_live,
+         mapped_snps=mapped,
+         sele_rows=sele_rows, sele_rows_subregion=sele_reg_rows,
+         categories_seen=int((bycat["mutation"].sum(axis=0) > 0).sum()),
+         compute_freq_lin_ms_a_tree=dict(card=round(ms_fl / T, 3),
+                                         cpu=round(ms_fl_cpu / T, 3)),
+         log_pvalue_batch=dict(rows=rec_pv["rows"], chunks=rec_pv["chunks"],
+                               cells=rec_pv["cells"], ms_card=round(ms_pv, 3),
+                               ms_cpu=round(ms_pv_cpu, 3),
+                               max_abs_diff=pv_err),
+         log_pvalue_batch_chromosome=dict(
+             snps=CHROMOSOME_SNPS, rows=rec_big["rows"],
+             chunks=rec_big["chunks"], cells=rec_big["cells"],
+             ms_card=round(ms_big, 3),
+             peak_device_memory_gb=round(peak_big, 3),
+             cpu_subset_rows=len(pick), cpu_subset_max_abs_diff=big_err),
+         sds_ms_card=round(ms_sds, 3),
+         avg_mutation_rate_ms=dict(card=round(mr_ms[DEV], 3),
+                                   cpu=round(mr_ms["cpu"], 3)),
+         card_vs_cpu="freq_lin equal; p-values within 1e-9; .freq .lin "
+                     ".qual .freqdiff bytes equal; rSDS, mutation, "
+                     "opportunity within rtol 1e-12",
+         peak_device_memory_gb=round(peak / 1e3, 3), launches=counts)
+
+
 def check_window_mapping(phase, store, N):
     """PostProcess maps record i of window w with SNP start_w + i. Each
     record on one branch must hold its own SNP's carriers (flipped: the
@@ -2289,7 +2552,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="kernels,main_path,run_all,coalescent_rate,"
-                            "run_all_n4096,run_all_ancient,anc_unknown,"
+                            "selection_mutation_rate,run_all_n4096,"
+                            "run_all_ancient,anc_unknown,"
                             "run_all_postprocess,optimize,cpu_vs_card")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -2309,7 +2573,8 @@ def main():
     panels = {}
     uses_panels = {"kernels", "main_path", "run_all", "run_all_n4096",
                    "run_all_ancient", "anc_unknown", "run_all_postprocess",
-                   "optimize", "profile", "coalescent_rate"}
+                   "optimize", "profile", "coalescent_rate",
+                   "selection_mutation_rate"}
     for N in (N_HAP, N_LARGE, N_INC) if phases & uses_panels else ():
         G, bp = make_panel(N, L_SNPS_INC if N == N_INC else L_SNPS)
         memory_gb = memory_auto
@@ -2332,10 +2597,11 @@ def main():
         torch.cuda.empty_cache()
     if "main_path" in phases:
         phase_main_path(*panels[N_HAP], kernels)
-    # run_all's N = 2048 output is the coalescent_rate phase's input
+    # run_all's N = 2048 output is the input of the coalescent_rate and
+    # selection_mutation_rate phases
     hand = tempfile.TemporaryDirectory(prefix="relate_smoke_coal_")
     handed = os.path.join(hand.name, f"run_all_n{N_LARGE}")
-    if phases & {"run_all", "coalescent_rate"}:
+    if phases & {"run_all", "coalescent_rate", "selection_mutation_rate"}:
         phase_run_all(*panels[N_LARGE], kernels, "run_all",
                       "merge_scan_large", hand_over=handed)
         torch.cuda.empty_cache()
@@ -2345,6 +2611,9 @@ def main():
                       kernels, f"run_all_n{N_PAIR}", "merge_scan",
                       hand_over=pair)
         phase_coalescent_rate(handed, pair)
+        torch.cuda.empty_cache()
+    if "selection_mutation_rate" in phases:
+        phase_selection_mutation_rate(handed)
         torch.cuda.empty_cache()
     hand.cleanup()
     if "run_all_n4096" in phases:

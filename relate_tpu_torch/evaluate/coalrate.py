@@ -40,13 +40,11 @@ import torch
 from ..core import mcmc
 from ..core.topology import MutationRecord
 from ..core.trees import AncesTree, topological_order
-from ..utils.devmem import resolve_device
+from ..utils.devmem import batch_rows, resolve_device
 from ..utils.trace import note, stage
 
 # the share of the card's free memory one batch of coalescence_stats may use
 BATCH_MEMORY_SHARE = 0.5
-# the bytes one batch may use on the CPU, where no free memory is reported
-HOST_BATCH_BYTES = 1 << 30
 
 
 # ---------------------------------------------------------------------------
@@ -196,12 +194,8 @@ def _batch_size(M: int, G: int, E: int, device, T: int) -> int:
     against half the card's free memory less the call's ``STATS_BLOCKS``
     (E, G, G) float64 blocks, or a fixed budget on the CPU."""
     per_tree = M * G * 4 + (M // 2) * (32 * G + 64)
-    if device.type == "cuda":
-        free, _ = torch.cuda.mem_get_info(device)
-        budget = BATCH_MEMORY_SHARE * free - STATS_BLOCKS * E * G * G * 8
-    else:
-        budget = HOST_BATCH_BYTES
-    return int(max(1, min(T, budget // per_tree)))
+    return batch_rows(per_tree, T, device, share=BATCH_MEMORY_SHARE,
+                      reserve=STATS_BLOCKS * E * G * G * 8)
 
 
 def coalescence_stats(trees, factors: np.ndarray, epochs: np.ndarray,

@@ -9,6 +9,7 @@ Formats (behavioral reference, not a code port):
 - genetic map: header + ``pos rate gen_pos(cM)`` rows (``data.cpp:591-625``).
 - ``.dist``: header + ``bp dist`` rows (``data.cpp:401-418``).
 - ``.poplabels``: header + ``ID POP GROUP SEX`` (``include/src/sample.cpp``).
+- fasta: one header line, then one sequence (``data.cpp:627-646``).
 
 All parsers transparently handle gzip by magic-byte sniffing, like the
 reference's popen-gunzip wrapper (``data.cpp:6-67``) but in-process.
@@ -16,6 +17,7 @@ reference's popen-gunzip wrapper (``data.cpp:6-67``) but in-process.
 from __future__ import annotations
 
 import gzip
+import io
 import os
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
@@ -273,3 +275,13 @@ def read_poplabels(path: str) -> PopLabels:
     index = {g: i for i, g in enumerate(groups)}
     goh = np.repeat(np.asarray([index[g] for g in grps], dtype=np.int32), 2)
     return PopLabels(ids, pops, grps, sexs, groups, goh)
+
+
+def read_fasta(path: str) -> str:
+    """Read a single-sequence fasta, uppercased (``data.cpp:627-646``)."""
+    seq = io.StringIO()
+    with smart_open(path) as f:
+        next(f)
+        for line in f:
+            seq.write(line.strip().upper())
+    return seq.getvalue()

@@ -1,6 +1,6 @@
 """Python equivalents of the reference's shell scripts of the
-coalescence-rate tools (``scripts/``): EstimatePopulationSize.sh,
-SampleBranchLengths.sh and ReEstimateBranchLengths.sh.
+post-inference tools (``scripts/``): EstimatePopulationSize.sh,
+SampleBranchLengths.sh, ReEstimateBranchLengths.sh and DetectSelection.sh.
 
 Counterpart of the same functions of ``relate_tpu/pipeline/scripts.py``.
 The shell scripts orchestrate binaries through temp files; here each one
@@ -16,7 +16,7 @@ from typing import Optional
 import numpy as np
 
 from ..core.topology import MutationRecord
-from ..evaluate import coalrate, sampling
+from ..evaluate import coalrate, sampling, selection
 from ..io import ancmut, extract
 from ..io import haps as hio
 from ..utils.devmem import resolve_device
@@ -104,6 +104,29 @@ def estimate_population_size(input_prefix: str, output_prefix: str,
         _dump_pair(output_prefix, anc_f, recs_f, bp_f, dist_f, rsid_f,
                    alleles_f)
     return epochs, rates
+
+
+def detect_selection(input_prefix: str, output_prefix: str,
+                     mu: float = 1.25e-8, years_per_gen: float = 28.0,
+                     first_bp: Optional[int] = None,
+                     last_bp: Optional[int] = None, device=None):
+    """DetectSelection.sh: frequency-through-time + selection p-values +
+    per-tree quality; writes .freq/.lin/.sele/.qual. On ``device`` (None:
+    the CUDA card)."""
+    device = resolve_device(device)
+    anc, recs, bp, dist, rsid, alleles = _load_pair(input_prefix)
+    if first_bp is not None and last_bp is not None:
+        anc, recs, (lo, hi) = extract.anc_mut_for_subregion(
+            anc, recs, bp, first_bp, last_bp)
+        bp, rsid = bp[lo:hi + 1], rsid[lo:hi + 1]
+    epochs = coalrate.default_epochs(years_per_gen)
+    rows, scan = selection.selection_scan(anc, recs, epochs, bp, rsid,
+                                          device=device)
+    selection.write_freq_lin(output_prefix, rows, epochs)
+    selection.write_sele(output_prefix + ".sele", scan, epochs)
+    selection.write_quality(output_prefix + ".qual",
+                            selection.quality(anc, recs))
+    return output_prefix
 
 
 def sample_branch_lengths(input_prefix: str, output_prefix: str,

@@ -1,20 +1,36 @@
-"""CLI of the post-inference tools, mirroring the reference binary
-RelateCoalescentRate; counterpart of ``relate_tpu/pipeline/tools_cli.py``.
+"""CLI of the post-inference tools, mirroring the reference binaries
+RelateCoalescentRate, RelateMutationRate, RelateSelection and
+RelateExtract; counterpart of ``relate_tpu/pipeline/tools_cli.py``.
 
 Usage:
-  python -m relate_tpu_torch.pipeline.tools_cli CoalescentRate \
-      --mode EstimatePopulationSize -i in -o out [--poplabels x.poplabels]
-      [--chr chrs.txt | --first_chr 1 --last_chr 22] [--bins 3,7,0.2]
+  python -m relate_tpu_torch.pipeline.tools_cli <tool> --mode <Mode> \
+      -i in -o out [--device cpu]
 
-The modes of CoalescentRate: EstimatePopulationSize (``.coal`` and, with
-``--poplabels`` or ``--poplabels hap``, ``.pairwise.coal``),
-CoalRateForTree (``.rates.npz``), GenerateConstCoalFile,
-ReEstimateBranchLengths (``--coal``, with ``--poplabels`` the pairwise
-prior), SampleBranchLengths (``--coal``, ``--format anc|newick|timeb``) and
-EstimatePopulationSizeEM (``--num_iter``). They run on the CUDA card;
-``--device cpu`` asks for the host. The other tools (MutationRate,
-Selection, Extract, TreeView, FileFormats) and ``--devices`` are not ported
-yet and exit with the ROADMAP item that names them.
+CoalescentRate: EstimatePopulationSize (``.coal`` and, with ``--poplabels``
+or ``--poplabels hap``, ``.pairwise.coal``; ``--chr chrs.txt`` or
+``--first_chr 1 --last_chr 22``, ``--bins 3,7,0.2``), CoalRateForTree
+(``.rates.npz``), GenerateConstCoalFile, ReEstimateBranchLengths
+(``--coal``, with ``--poplabels`` the pairwise prior), SampleBranchLengths
+(``--coal``, ``--format anc|newick|timeb``) and EstimatePopulationSizeEM
+(``--num_iter``).
+
+MutationRate: Avg / FinalizeAvg (``_avg.rate``, ``_avg.npz``), WithContext,
+WithContextForChromosome, MutationRateForCategory, ForCategoryForChromosome
+and ForCategoryForPopForChromosome (``--ancestor`` fasta; the last with
+``--poplabels`` and ``--pop_of_interest``; ``.rate``, ``_bycat.npz``),
+MutationDensity (``--sample_id``), each over ``--chr`` /
+``--first_chr..--last_chr`` too; and the summaries of per-chromosome
+outputs (``-i a,b,...``): SummarizeForGenome[ForCategory],
+Finalize[ForCategory], FinalizeMutationCount and XY.
+
+Selection: Frequency (``.freq``, ``.lin``), Selection (``.sele``), Quality
+(``.qual``), SDS (``.sds``) and FreqDiff (``.freqdiff``, ``.zfreqdiff``).
+
+Extract: every mode of RelateExtract but ConvertNewickToTimeb (host code).
+
+The tools run on the CUDA card; ``--device cpu`` asks for the host.
+TreeView, FileFormats, Extract's ConvertNewickToTimeb and ``--devices`` are
+not ported yet and exit with the ROADMAP item that names them.
 """
 from __future__ import annotations
 
@@ -28,9 +44,25 @@ TOOLS = ("CoalescentRate", "MutationRate", "Selection", "Extract",
 COALESCENT_RATE_MODES = ("EstimatePopulationSize", "CoalRateForTree",
                          "GenerateConstCoalFile", "ReEstimateBranchLengths",
                          "SampleBranchLengths", "EstimatePopulationSizeEM")
-# the ROADMAP (section A) item of each tool not ported yet
-NOT_PORTED = {"MutationRate": 2, "Selection": 2, "Extract": 3,
-              "TreeView": 3, "FileFormats": 3}
+MUTATION_RATE_SUMMARIES = ("SummarizeForGenome",
+                           "SummarizeForGenomeForCategory", "Finalize",
+                           "FinalizeForCategory", "FinalizeMutationCount",
+                           "XY")
+MUTATION_RATE_CONTEXT_MODES = ("WithContext", "WithContextForChromosome",
+                               "MutationRateForCategory",
+                               "ForCategoryForChromosome",
+                               "ForCategoryForPopForChromosome")
+MUTATION_RATE_MODES = (("Avg", "FinalizeAvg") + MUTATION_RATE_CONTEXT_MODES
+                       + ("MutationDensity",) + MUTATION_RATE_SUMMARIES)
+SELECTION_MODES = ("Frequency", "Selection", "Quality", "SDS", "FreqDiff")
+EXTRACT_MODES = ("AncToNewick", "SubTreesForSubpopulation",
+                 "AncMutForSubregion", "RemoveTreesWithFewMutations",
+                 "ExtractDistFromMut", "DivideAncMut", "MapMutations",
+                 "UnlinkTips", "GetMut", "AncientToModern",
+                 "CountMutonBranches", "GetAllBranchesOfMut",
+                 "CheckBranchPersistence", "GenerateSNPAnnotationsUsingTree")
+# the ROADMAP (section A) item of each tool or mode not ported yet
+NOT_PORTED = {"TreeView": 3, "FileFormats": 3, "ConvertNewickToTimeb": 3}
 
 
 def _chr_list(args):
@@ -118,6 +150,297 @@ def coalescent_rate(args):
                          + ", ".join(COALESCENT_RATE_MODES))
 
 
+def _merged_mut_rows(recs, bp, dist, rsid, alleles,
+                     extra_bp, extra_recs, extra_rsid, extra_alleles):
+    """Interleave existing mutation records with newly-mapped extra SNPs by
+    position; extras carry dist=0 (GetTreeOfInterest.cpp:250-259)."""
+    from ..io import ancmut
+    items = [(int(bp[i]), recs[i], int(dist[i]), rsid[i], alleles[i])
+             for i in range(len(bp))]
+    items += [(int(extra_bp[i]), extra_recs[i], 0, extra_rsid[i],
+               extra_alleles[i]) for i in range(len(extra_bp))]
+    items.sort(key=lambda t: t[0])
+    rows = []
+    for snp, (pos, m, d, rs, al) in enumerate(items):
+        br = " ".join(str(b) for b in m.branch)
+        rows.append(
+            f"{snp};{pos};{d};{rs};{m.tree};{br};"
+            f"{1 if len(m.branch) != 1 else 0};{int(m.flipped)};"
+            f"{ancmut._fmt_g(m.age_begin)};{ancmut._fmt_g(m.age_end)};"
+            f"{al};")
+    return rows
+
+
+def _keep_of(args, N):
+    """The haplotypes whose group in ``--poplabels`` is one of the
+    comma-separated ``--pop_of_interest``."""
+    from ..io import haps as hio
+    pl = hio.read_poplabels(args.poplabels)
+    wanted = set(args.pop_of_interest.split(","))
+    return [h for h in range(N)
+            if pl.groups[pl.group_of_haplotype[h]] in wanted]
+
+
+def mutation_rate(args):
+    from ..evaluate import coalrate, mutrate
+    from ..utils.devmem import resolve_device
+    from . import scripts
+    if args.mode not in MUTATION_RATE_MODES:
+        raise SystemExit(f"unknown mode {args.mode!r}; MutationRate takes "
+                         + ", ".join(MUTATION_RATE_MODES))
+    if args.mode in MUTATION_RATE_SUMMARIES:
+        return mutation_rate_summary(args)
+    device = resolve_device(args.device)
+    chrs = _chr_list(args)
+    if chrs is not None:
+        # per-chromosome loop + genome summarize + finalize
+        # (RelateMutationRate ForChromosome modes -> SummarizeForGenome ->
+        # Finalize; EstimatePopulationSize.sh:428-461)
+        import copy
+        outs = []
+        for c in chrs:
+            a = copy.copy(args)
+            a.chr = None
+            a.first_chr = a.last_chr = None
+            a.input = f"{args.input}_chr{c}"
+            a.output = f"{args.output}_chr{c}"
+            mutation_rate(a)
+            outs.append(a.output)
+        a = copy.copy(args)
+        a.input = ",".join(outs)
+        a.mode = "SummarizeForGenomeForCategory" \
+            if "Category" in args.mode or "Context" in args.mode \
+            else "SummarizeForGenome"
+        mutation_rate_summary(a)
+        a.input = a.output
+        a.mode = "FinalizeForCategory" if "ForCategory" in a.mode \
+            else "Finalize"
+        mutation_rate_summary(a)
+        return
+    anc, recs, bp, dist, rsid, alleles = scripts._load_pair(args.input)
+    epochs = coalrate.epochs_from_bins(*args.bins, args.years_per_gen) \
+        if args.bins else coalrate.default_epochs(args.years_per_gen)
+    if args.mode in ("Avg", "FinalizeAvg"):
+        m, o, r = mutrate.avg_mutation_rate(anc, recs, dist, epochs,
+                                            device=device)
+        mutrate.write_rate(args.output + "_avg.rate", epochs, r)
+        np.savez(args.output + "_avg.npz", epochs=epochs, mutation=m,
+                 opportunity=o)
+    elif args.mode in MUTATION_RATE_CONTEXT_MODES:
+        from ..io import haps as hio
+        anc_seq = hio.read_fasta(args.ancestor)
+        if args.mode == "ForCategoryForPopForChromosome" and args.poplabels:
+            # restrict the trees to the population of interest first
+            from ..io import extract
+            anc, recs = extract.subtrees_for_subpopulation(
+                anc, recs, _keep_of(args, anc.N))
+        ancestral = [a.split("/")[0] for a in alleles]
+        alternative = [a.split("/")[1] if "/" in a else "N" for a in alleles]
+        cats, names = mutrate.categorize_snps(bp, ancestral, alternative,
+                                              anc_seq)
+        m, o, r = mutrate.avg_mutation_rate(anc, recs, dist, epochs,
+                                            categories=cats,
+                                            num_categories=len(names),
+                                            device=device)
+        _write_cat_rate(args.output + ".rate", epochs, names, r)
+        np.savez(args.output + "_bycat.npz", epochs=epochs, mutation=m,
+                 opportunity=o, names=np.asarray(names))
+    else:
+        m, o = mutrate.mutation_density(anc, recs, dist, epochs,
+                                        args.sample_id)
+        np.savez(args.output + ".density.npz", epochs=epochs, mutation=m,
+                 opportunity=o)
+
+
+def _write_cat_rate(path, epochs, names, r):
+    with open(path, "w") as f:
+        f.write("epoch " + " ".join(names) + "\n")
+        for e in range(len(epochs)):
+            row = r[e] if np.ndim(r[e]) else [r[e]]
+            f.write(f"{epochs[e]:g} " + " ".join(f"{x:g}" for x in row)
+                    + "\n")
+
+
+def mutation_rate_summary(args):
+    """Genome-level aggregation modes that consume per-chromosome .npz
+    stats instead of anc/mut (SummarizeForGenome[ForCategory],
+    Finalize[ForCategory], FinalizeMutationCount, XY;
+    RelateMutationRate.cpp:3453-3634). ``--input`` is a comma-separated
+    list of per-chromosome output prefixes. Host code."""
+    suffix = "_bycat.npz" if "ForCategory" in args.mode else "_avg.npz"
+    parts = [np.load(p + suffix, allow_pickle=True)
+             for p in args.input.split(",")]
+    epochs = parts[0]["epochs"]
+    m = sum(p["mutation"] for p in parts)
+    o = sum(p["opportunity"] for p in parts)
+    names = (list(parts[0]["names"]) if "names" in parts[0].files
+             else ["all"])
+    if args.mode.startswith("SummarizeForGenome"):
+        np.savez(args.output + suffix, epochs=epochs, mutation=m,
+                 opportunity=o, names=np.asarray(names))
+    elif args.mode in ("Finalize", "FinalizeForCategory"):
+        r = np.where(o > 0, m / np.maximum(o, 1e-300), 0.0)
+        _write_cat_rate(args.output + ".rate", epochs, names, r)
+    elif args.mode == "FinalizeMutationCount":
+        _write_cat_rate(args.output + ".count", epochs, names, m)
+    else:
+        # XY: the ratio of the X to the autosome mutation rate per epoch
+        if len(parts) < 2:
+            raise SystemExit("XY needs two inputs: autosomes,chrX")
+        ra, rx = (np.where(p["opportunity"] > 0, p["mutation"]
+                           / np.maximum(p["opportunity"], 1e-300), 0.0)
+                  for p in parts[:2])
+        ratio = np.where(ra > 0, rx / np.maximum(ra, 1e-300), 0.0)
+        _write_cat_rate(args.output + ".xy", epochs, names, ratio)
+
+
+def selection_tool(args):
+    from ..evaluate import coalrate, selection
+    from ..utils.devmem import resolve_device
+    from . import scripts
+    device = resolve_device(args.device)
+    if args.mode not in SELECTION_MODES:
+        raise SystemExit(f"unknown mode {args.mode!r}; Selection takes "
+                         + ", ".join(SELECTION_MODES))
+    anc, recs, bp, dist, rsid, alleles = scripts._load_pair(args.input)
+    epochs = coalrate.default_epochs(args.years_per_gen)
+    if args.mode == "Frequency":
+        rows = selection.compute_freq_lin(anc, recs, epochs, bp, rsid,
+                                          device=device)
+        selection.write_freq_lin(args.output, rows, epochs)
+    elif args.mode == "Selection":
+        rows, scan = selection.selection_scan(anc, recs, epochs, bp, rsid,
+                                              device=device)
+        selection.write_sele(args.output + ".sele", scan, epochs)
+    elif args.mode == "Quality":
+        selection.write_quality(args.output + ".qual",
+                                selection.quality(anc, recs))
+    elif args.mode == "SDS":
+        rows = selection.sds(anc, recs, bp, rsid, device=device)
+        selection.write_sds(args.output + ".sds", rows)
+    else:
+        rows = selection.compute_freq_lin(anc, recs, epochs, bp, rsid,
+                                          device=device)
+        diffs, zdiffs = selection.freq_diff(rows, anc.N)
+        selection.write_freqdiff(args.output, diffs, zdiffs, epochs)
+
+
+def extract_tool(args):
+    """RelateExtract's modes: host code over the tree sequence, so
+    ``--device`` plays no part."""
+    from ..io import ancmut, extract
+    from .scripts import _dump_pair, _load_pair
+    if args.mode == "CombineAncMut":
+        # inverse of DivideAncMut: chunks live at <output>_chr<i>; their
+        # per-chunk metadata is concatenated, NOT taken from --input
+        # (extract/AncMutChunks.cpp:214-325)
+        import os
+        parts, bps, dists, rsids, alls = [], [], [], [], []
+        i = 1
+        while os.path.exists(f"{args.output}_chr{i}.anc"):
+            a, m, b, d, r, al = _load_pair(f"{args.output}_chr{i}")
+            parts.append((a, m))
+            bps.append(b)
+            dists.append(d)
+            rsids.extend(r)
+            alls.extend(al)
+            i += 1
+        if not parts:
+            raise SystemExit(f"no chunks found at {args.output}_chr1.anc")
+        anc2, recs2 = extract.combine_anc_mut(parts)
+        _dump_pair(args.output, anc2, recs2, np.concatenate(bps),
+                   np.concatenate(dists), rsids, alls)
+        return
+    if args.mode not in EXTRACT_MODES:
+        raise SystemExit(f"unknown mode {args.mode!r}; Extract takes "
+                         "CombineAncMut, " + ", ".join(EXTRACT_MODES))
+    anc, recs, bp, dist, rsid, alleles = _load_pair(args.input)
+    if args.mode == "AncToNewick":
+        nw = extract.anc_to_newick(anc, recs, bp, args.first_bp,
+                                   args.last_bp)
+        with open(args.output + ".newick", "w") as f:
+            f.write("\n".join(nw) + "\n")
+    elif args.mode == "SubTreesForSubpopulation":
+        sub_anc, sub_muts = extract.subtrees_for_subpopulation(
+            anc, recs, _keep_of(args, anc.N))
+        _dump_pair(args.output, sub_anc, sub_muts, bp, dist, rsid, alleles)
+    elif args.mode == "AncMutForSubregion":
+        sub, subm, (lo, hi) = extract.anc_mut_for_subregion(
+            anc, recs, bp, args.first_bp, args.last_bp)
+        _dump_pair(args.output, sub, subm, bp[lo:hi + 1], dist[lo:hi + 1],
+                   rsid[lo:hi + 1], alleles[lo:hi + 1])
+    elif args.mode == "RemoveTreesWithFewMutations":
+        anc2, recs2 = extract.remove_trees_with_few_mutations(
+            anc, recs, args.threshold)
+        _dump_pair(args.output, anc2, recs2, bp, dist, rsid, alleles)
+    elif args.mode == "ExtractDistFromMut":
+        extract.extract_dist_from_mut(
+            [{"pos": bp[i], "dist": int(dist[i])} for i in range(len(bp))],
+            args.output + ".dist")
+    elif args.mode == "DivideAncMut":
+        off = 0
+        for i, (a, m) in enumerate(extract.divide_anc_mut(anc, recs,
+                                                          args.threads)):
+            n = len(m)
+            _dump_pair(f"{args.output}_chr{i+1}", a, m, bp[off:off + n],
+                       dist[off:off + n], rsid[off:off + n],
+                       alleles[off:off + n])
+            off += n
+    elif args.mode == "MapMutations":
+        # read extra SNPs from a second haps/sample pair, map each onto the
+        # tree covering its position, and write a merged .mut; SNPs at
+        # already-existing positions are skipped
+        # (extract/GetTreeOfInterest.cpp:128-290)
+        if not args.haps or not args.sample:
+            raise SystemExit("MapMutations needs --haps and --sample for "
+                             "the extra SNPs")
+        from ..io import haps as hio
+        data = hio.read_haps(args.haps, args.sample)
+        new = ~np.isin(data.bp, bp)
+        extras = extract.map_extra_mutations(
+            anc, recs, bp, data.bp[new], data.genotypes[new])
+        rows = _merged_mut_rows(
+            recs, bp, dist, rsid, alleles,
+            data.bp[new], extras,
+            [data.rsid[i] for i in np.nonzero(new)[0]],
+            [f"{data.ancestral[i]}/{data.alternative[i]}"
+             for i in np.nonzero(new)[0]])
+        ancmut.write_mut_final(args.output + ".mut", rows)
+    elif args.mode == "UnlinkTips":
+        tips = [int(x) for x in args.pop_of_interest.split(",") if x]
+        anc2 = extract.unlink_tips(anc, tips)
+        _dump_pair(args.output, anc2, recs, bp, dist, rsid, alleles)
+    elif args.mode == "GetMut":
+        extract.get_mut(anc, recs)
+        _dump_pair(args.output, anc, recs, bp, dist, rsid, alleles)
+    elif args.mode == "AncientToModern":
+        anc2 = extract.ancient_to_modern(anc)
+        _dump_pair(args.output, anc2, recs, bp, dist, rsid, alleles)
+    elif args.mode == "CountMutonBranches":
+        rows = extract.count_mut_on_branches(anc, recs)
+        with open(args.output + ".mutcount", "w") as f:
+            f.write("tree branch count\n")
+            for t, b, c in rows:
+                f.write(f"{t} {b} {c}\n")
+    elif args.mode == "GetAllBranchesOfMut":
+        with open(args.output + ".branches", "w") as f:
+            f.write("snp branches\n")
+            for snp, brs in extract.all_branches_of_mut(recs):
+                f.write(f"{snp} {' '.join(str(b) for b in brs)}\n")
+    elif args.mode == "CheckBranchPersistence":
+        per = extract.check_branch_persistence(anc, recs, bp)
+        with open(args.output + ".persistence", "w") as f:
+            f.write("snp bp persisted_bases\n")
+            for snp, v in enumerate(per):
+                f.write(f"{snp} {bp[snp]} {v:g}\n")
+    else:
+        rows = extract.generate_snp_annotations_using_tree(anc, recs, bp,
+                                                           alleles)
+        with open(args.output + ".annot", "w") as f:
+            f.write("upstream_allele;downstream_allele;\n")
+            f.write("\n".join(rows) + "\n")
+
+
 def build_parser():
     p = argparse.ArgumentParser(prog="relate_tpu_torch.tools")
     p.add_argument("tool", choices=TOOLS)
@@ -165,12 +488,15 @@ def main(argv=None):
     if args.devices:
         raise SystemExit("--devices (several cards) is not ported yet: "
                          "ROADMAP section A, item 4")
-    if args.tool in NOT_PORTED:
-        raise SystemExit(f"the {args.tool} tool is not ported yet: ROADMAP "
-                         f"section A, item {NOT_PORTED[args.tool]}")
+    for name in (args.tool, args.mode):
+        if name in NOT_PORTED:
+            raise SystemExit(f"{name} is not ported yet: ROADMAP section A, "
+                             f"item {NOT_PORTED[name]}")
     from ..utils.trace import stage
     with stage(f"{args.tool}.{args.mode or 'default'}"):
-        coalescent_rate(args)
+        {"CoalescentRate": coalescent_rate, "MutationRate": mutation_rate,
+         "Selection": selection_tool, "Extract": extract_tool}[args.tool](
+             args)
     return 0
 
 

@@ -46,3 +46,21 @@ def auto_memory_gb(device=None) -> float:
     leaves room for that, the merge matrices and the checkpoint slabs.
     """
     return max(0.25, min(5.0, device_memory_gb(device) / 20.0))
+
+
+# the bytes one batch may use on the CPU, where no free memory is reported
+HOST_BATCH_BYTES = 1 << 30
+
+
+def batch_rows(bytes_per_row: int, total: int, device, share: float = 0.5,
+               reserve: int = 0) -> int:
+    """How many rows of ``bytes_per_row`` one batch may hold: ``share`` of
+    the card's free memory less ``reserve`` bytes on a CUDA device,
+    ``HOST_BATCH_BYTES`` on the CPU; at least 1 and at most ``total``."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        budget = share * free - reserve
+    else:
+        budget = HOST_BATCH_BYTES
+    return int(max(1, min(max(total, 1), budget // max(bytes_per_row, 1))))

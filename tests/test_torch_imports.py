@@ -42,7 +42,8 @@ def test_every_module_imports_without_jax():
     for new in ("core.branch_association", "core.branch_association_device",
                 "core.mcmc", "ops.merge_scan_inc", "pipeline.postprocess",
                 "evaluate.coalrate", "evaluate.sampling", "pipeline.scripts",
-                "pipeline.tools_cli", "io.extract"):
+                "pipeline.tools_cli", "io.extract", "evaluate.selection",
+                "evaluate.mutrate"):
         assert "relate_tpu_torch." + new in names
     code = (
         "import importlib, sys\n"
@@ -174,6 +175,26 @@ def test_entry_points_do_not_fall_back_to_the_cpu(tmp_path):
     with pytest.raises(ValueError, match="memory_gb"):
         devmem.auto_memory_gb("cpu")
     assert devmem.resolve_device("cpu").type == "cpu"
+
+
+def test_tool_entry_points_do_not_fall_back_to_the_cpu(tmp_path):
+    """The selection and mutation-rate functions with a device part."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None runs on it")
+    from relate_tpu_torch.evaluate import mutrate, selection
+    from relate_tpu_torch.pipeline import scripts
+    e = np.zeros(3)
+    for call in (lambda: selection.compute_freq_lin(None, [], e),
+                 lambda: selection.selection_scan(None, [], e),
+                 lambda: selection.log_pvalue_batch([5], [2], 8, [3], e),
+                 lambda: selection.sds(None, []),
+                 lambda: mutrate.avg_mutation_rate(None, [], e, e),
+                 lambda: mutrate.branch_length_in_epochs([], e),
+                 lambda: mutrate.spread_mutations(np.zeros((1, 2)), e),
+                 lambda: scripts.detect_selection("x", str(tmp_path / "o"))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert not list(tmp_path.iterdir())
 
 
 def test_cli_names_the_modes_that_are_not_ported(tmp_path):

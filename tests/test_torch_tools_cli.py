@@ -1,7 +1,14 @@
-"""The slice as a whole: the CoalescentRate tool of the port's
-``pipeline/tools_cli.py`` against the JAX package's, mode by mode, on the
-same files cut from the reference's final ``golden.anc/.mut`` (two
-"chromosomes" of 1,200 SNPs each, N = 8).
+"""The slices as a whole: the tools of the port's ``pipeline/tools_cli.py``
+against the JAX package's, mode by mode, on the same files.
+
+CoalescentRate runs on files cut from the reference's final
+``golden.anc/.mut`` (two "chromosomes" of 1,200 SNPs each, N = 8).
+MutationRate, Selection and Extract run on the panel of
+tests/test_cli_smoke.py (``synth_panel(8, 400, seed=3)``, its two-group
+``.poplabels`` and its all-A ``anc.fasta``, here also a seeded random
+fasta) after ``run_all`` of the port on the CPU; their text files must hold
+the JAX tool's bytes, and their ``.npz`` arrays agree at rtol 1e-12 (float64
+sums in another order).
 
 The chains of both packages (``sampling.sample_branch_lengths`` and
 ``mcmc.run_mcmc``) are replaced by one deterministic function of the tree,
@@ -27,6 +34,7 @@ import torch
 from relate_tpu.core import mcmc as jmcmc
 from relate_tpu.evaluate import coalrate as jcoalrate
 from relate_tpu.evaluate import sampling as jsampling
+from relate_tpu.pipeline import scripts as jscripts
 from relate_tpu.pipeline import tools_cli as jcli
 from relate_tpu_torch.core import mcmc as tmcmc
 from relate_tpu_torch.evaluate import sampling as tsampling
@@ -100,7 +108,8 @@ def fixed_chains(monkeypatch):
     return seen
 
 
-def _run_both(tmp_path, mode, args, files, monkeypatch=None):
+def _run_both(tmp_path, mode, args, files, monkeypatch=None,
+              tool="CoalescentRate"):
     """The mode through both CLIs with the same arguments; the files each
     wrote, by suffix. With ``monkeypatch`` the JAX package runs again with
     its host twin of ``coalescence_stats`` ("jax" then names that run,
@@ -109,8 +118,7 @@ def _run_both(tmp_path, mode, args, files, monkeypatch=None):
     runs = [("jax", jcli.main, []), ("port", tcli.main, ["--device", "cpu"])]
     for name, main, extra in runs:
         o = str(tmp_path / name)
-        assert main(["CoalescentRate", "--mode", mode, "-o", o] + args
-                    + extra) == 0
+        assert main([tool, "--mode", mode, "-o", o] + args + extra) == 0
         out[name] = {f: o + f for f in files}
     if monkeypatch is not None:
         plain = jcoalrate.coalescence_stats
@@ -266,18 +274,225 @@ def test_reestimate_branch_lengths(inputs, tmp_path, fixed_chains, pairwise):
 
 
 def test_other_tools_name_their_roadmap_item(tmp_path):
-    for tool, item in (("MutationRate", 2), ("Selection", 2), ("Extract", 3),
-                       ("TreeView", 3), ("FileFormats", 3)):
-        with pytest.raises(SystemExit, match=f"item {item}"):
-            tcli.main([tool, "-i", "x", "-o", str(tmp_path / "o")])
+    for tool, mode in (("TreeView", "TreeView"),
+                       ("FileFormats", "ConvertFromVcf"),
+                       ("Extract", "ConvertNewickToTimeb")):
+        with pytest.raises(SystemExit, match="item 3"):
+            tcli.main([tool, "--mode", mode, "-i", "x", "-o",
+                       str(tmp_path / "o")])
     with pytest.raises(SystemExit, match="item 4"):
         tcli.main(["CoalescentRate", "--mode", "CoalRateForTree", "-i", "x",
                    "-o", "y", "--devices", "2"])
-    with pytest.raises(SystemExit, match="EstimatePopulationSizeEM"):
-        tcli.main(["CoalescentRate", "--mode", "Nope", "-i", "x", "-o", "y",
-                   "--device", "cpu"])
+    for tool, listed in (("CoalescentRate", "EstimatePopulationSizeEM"),
+                         ("MutationRate", "ForCategoryForPopForChromosome"),
+                         ("Selection", "FreqDiff"),
+                         ("Extract", "GenerateSNPAnnotationsUsingTree")):
+        with pytest.raises(SystemExit, match=listed):
+            tcli.main([tool, "--mode", "Nope", "-i", "x", "-o", "y",
+                       "--device", "cpu"])
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA"):
-            tcli.main(["CoalescentRate", "--mode", "GenerateConstCoalFile",
-                       "-i", "x", "-o", str(tmp_path / "c")])
-        assert not (tmp_path / "c.coal").exists()
+        for tool, mode in (("CoalescentRate", "GenerateConstCoalFile"),
+                           ("MutationRate", "Avg"),
+                           ("Selection", "Frequency")):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                tcli.main([tool, "--mode", mode, "-i", "x", "-o",
+                           str(tmp_path / "c")])
+        assert not list(tmp_path.iterdir())
+
+
+# ---------------------------------------------------------------------------
+# MutationRate, Selection and Extract on the panel of tests/test_cli_smoke.py
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def panel(tmp_path_factory):
+    """``run`` (the port's ``run_all`` output on the CPU), ``chr``
+    (``chr_1``, ``chr_2``: its DivideAncMut halves), the ``.poplabels``,
+    ``anc.fasta`` (all A) and ``random.fasta``, and the extra SNPs
+    (``extra.haps/.sample``) for MapMutations."""
+    from relate_tpu_torch.pipeline import relate as trelate
+    from relate_tpu_torch.utils import synth
+    d = tmp_path_factory.mktemp("tools_panel")
+    G, bp = synth.synth_panel(8, 400, seed=3)
+    prefix = str(d / "toy")
+    synth.write_haps_sample(G, bp, prefix)
+    synth.write_flat_map(prefix + ".map", int(bp[-1]))
+    with open(d / "pop.poplabels", "w") as f:
+        f.write("sample population group sex\n")
+        for i in range(4):
+            f.write(f"s{i} P{'AB'[i % 2]} G{'AB'[i % 2]} NA\n")
+    (d / "anc.fasta").write_text(">1\n" + "A" * (int(bp[-1]) + 2) + "\n")
+    rng = np.random.default_rng(17)
+    seq = "".join(rng.choice(list("acgt"), int(bp[-1]) + 2))
+    (d / "random.fasta").write_text(
+        ">1\n" + "\n".join(seq[i: i + 60] for i in range(0, len(seq), 60))
+        + "\n")
+    trelate.run_all(prefix + ".haps", prefix + ".sample", prefix + ".map",
+                    str(d / "run"), memory_gb=1.0, verbose=False,
+                    device="cpu")
+    assert tcli.main(["Extract", "--mode", "DivideAncMut", "-i",
+                      str(d / "run"), "-o", str(d / "chr"), "--threads",
+                      "2"]) == 0
+    extra_bp = bp[:20] + 7
+    synth.write_haps_sample((rng.random((20, 8)) < 0.4).astype(np.uint8),
+                            extra_bp, str(d / "extra"))
+    return d
+
+
+def _npz_close(out, suffix):
+    got, want = (np.load(out[k][suffix]) for k in ("port", "jax"))
+    assert got.files == want.files
+    for k in got.files:
+        g, w = got[k], want[k]
+        if g.dtype.kind == "f":
+            np.testing.assert_allclose(g, w, rtol=1e-12, atol=0)
+        else:
+            assert np.array_equal(g, w), k
+
+
+@pytest.mark.parametrize("mode,fasta", [
+    ("Avg", None), ("FinalizeAvg", None), ("WithContext", "anc"),
+    ("WithContext", "random"), ("WithContextForChromosome", "random"),
+    ("MutationRateForCategory", "random"),
+    ("ForCategoryForChromosome", "random"),
+    ("ForCategoryForPopForChromosome", "random"), ("MutationDensity", None)])
+def test_mutation_rate_modes(panel, tmp_path, mode, fasta):
+    args = ["-i", str(panel / "run")]
+    if fasta:
+        args += ["--ancestor", str(panel / f"{fasta}.fasta")]
+    if mode == "ForCategoryForPopForChromosome":
+        args += ["--poplabels", str(panel / "pop.poplabels"),
+                 "--pop_of_interest", "GA"]
+    if mode == "MutationDensity":
+        args += ["--sample_id", "3"]
+    text, npz = {"Avg": ([".rate"], "_avg.npz"),
+                 "MutationDensity": ([], ".density.npz")}.get(
+                     mode.replace("FinalizeAvg", "Avg"),
+                     ([".rate"], "_bycat.npz"))
+    if mode in ("Avg", "FinalizeAvg"):
+        text = ["_avg.rate"]
+    out = _run_both(tmp_path, mode, args, text + [npz],
+                    tool="MutationRate")
+    _same_bytes({k: {f: v[f] for f in text} for k, v in out.items()})
+    _npz_close(out, npz)
+    m = np.load(out["port"][npz])["mutation"]
+    assert m.sum() > 0
+    if fasta == "random":
+        assert (m.sum(axis=0) > 0).sum() > 8
+
+
+@pytest.mark.parametrize("mode", ["Avg", "WithContext"])
+def test_mutation_rate_over_chromosomes(panel, tmp_path, mode):
+    """The --first_chr..--last_chr loop: each chromosome, the genome sum
+    and the finalised rates."""
+    args = ["-i", str(panel / "chr"), "--first_chr", "1", "--last_chr", "2",
+            "--ancestor", str(panel / "random.fasta")]
+    npz = "_avg.npz" if mode == "Avg" else "_bycat.npz"
+    per = [f"_chr{c}{s}" for c in (1, 2) for s in
+           ([npz, "_avg.rate"] if mode == "Avg" else [npz, ".rate"])]
+    out = _run_both(tmp_path, mode, args, per + [npz, ".rate"],
+                    tool="MutationRate")
+    _same_bytes({k: {f: v[f] for f in v if f.endswith("rate")}
+                 for k, v in out.items()})
+    for f in per + [npz]:
+        if f.endswith(".npz"):
+            _npz_close(out, f)
+
+
+def test_mutation_rate_summaries(panel, tmp_path):
+    """The summary modes of both CLIs on the same per-chromosome outputs
+    (the port's)."""
+    parts = []
+    for c, mode in ((1, "Avg"), (2, "Avg"), (1, "WithContext"),
+                    (2, "WithContext")):
+        o = str(tmp_path / f"in_{mode}_{c}")
+        assert tcli.main(["MutationRate", "--mode", mode, "-i",
+                          str(panel / f"chr_chr{c}"), "-o", o, "--ancestor",
+                          str(panel / "random.fasta"), "--device",
+                          "cpu"]) == 0
+        parts.append(o)
+    avg, cat = ",".join(parts[:2]), ",".join(parts[2:])
+    for mode, inp, files in (
+            ("SummarizeForGenome", avg, ["_avg.npz"]),
+            ("SummarizeForGenomeForCategory", cat, ["_bycat.npz"]),
+            ("Finalize", avg, [".rate"]),
+            ("FinalizeForCategory", cat, [".rate"]),
+            ("FinalizeMutationCount", avg, [".count"]),
+            ("XY", avg, [".xy"])):
+        (tmp_path / mode).mkdir()
+        out = _run_both(tmp_path / mode, mode, ["-i", inp], files,
+                        tool="MutationRate")
+        if files[0].endswith(".npz"):
+            _npz_close(out, files[0])
+        else:
+            _same_bytes(out)
+
+
+@pytest.mark.parametrize("mode,files", [
+    ("Frequency", [".freq", ".lin"]), ("Selection", [".sele"]),
+    ("Quality", [".qual"]), ("SDS", [".sds"]),
+    ("FreqDiff", [".freqdiff", ".zfreqdiff"])])
+def test_selection_modes(panel, tmp_path, mode, files):
+    out = _run_both(tmp_path, mode, ["-i", str(panel / "run")], files,
+                    tool="Selection")
+    _same_bytes(out)
+    with open(out["port"][files[0]]) as f:
+        assert len(f.readlines()) > 100
+
+
+def test_detect_selection(panel, tmp_path):
+    """``scripts.detect_selection`` of both packages, whole and on a
+    subregion."""
+    for region in ((None, None), (20_000, 150_000)):
+        for name, scripts, kw in (("jax", jscripts, {}),
+                                  ("port", tscripts, dict(device="cpu"))):
+            scripts.detect_selection(str(panel / "run"),
+                                     str(tmp_path / name), first_bp=region[0],
+                                     last_bp=region[1], **kw)
+        _same_bytes({k: {f: str(tmp_path / k) + f for f in
+                         (".freq", ".lin", ".sele", ".qual")}
+                     for k in ("jax", "port")})
+
+
+@pytest.mark.parametrize("mode,extra,files", [
+    ("AncToNewick", ["--first_bp", "500", "--last_bp", "100000"],
+     [".newick"]),
+    ("SubTreesForSubpopulation", ["--poplabels", "POP", "--pop_of_interest",
+                                  "GA"], [".anc", ".mut"]),
+    ("AncMutForSubregion", ["--first_bp", "500", "--last_bp", "100000"],
+     [".anc", ".mut"]),
+    ("RemoveTreesWithFewMutations", ["--threshold", "0.2"], [".anc", ".mut"]),
+    ("ExtractDistFromMut", [], [".dist"]),
+    ("DivideAncMut", ["--threads", "3"],
+     [f"_chr{i}{s}" for i in (1, 2, 3) for s in (".anc", ".mut")]),
+    ("MapMutations", ["--haps", "EXTRA.haps", "--sample", "EXTRA.sample"],
+     [".mut"]),
+    ("UnlinkTips", ["--pop_of_interest", "0,1"], [".anc", ".mut"]),
+    ("GetMut", [], [".anc", ".mut"]),
+    ("AncientToModern", [], [".anc", ".mut"]),
+    ("CountMutonBranches", [], [".mutcount"]),
+    ("GetAllBranchesOfMut", [], [".branches"]),
+    ("CheckBranchPersistence", [], [".persistence"]),
+    ("GenerateSNPAnnotationsUsingTree", [], [".annot"])])
+def test_extract_modes(panel, tmp_path, mode, extra, files):
+    extra = [str(panel / "pop.poplabels") if e == "POP" else
+             e.replace("EXTRA", str(panel / "extra")) for e in extra]
+    out = _run_both(tmp_path, mode, ["-i", str(panel / "run")] + extra,
+                    files, tool="Extract")
+    _same_bytes(out)
+
+
+def test_extract_combine_anc_mut(panel, tmp_path):
+    """CombineAncMut reads the chunks at ``<output>_chr<i>``: both CLIs
+    rejoin the same DivideAncMut chunks into the run's own files."""
+    for name in ("jax", "port"):
+        for c in (1, 2):
+            for s in (".anc", ".mut"):
+                (tmp_path / f"{name}_chr{c}{s}").write_bytes(
+                    (panel / f"chr_chr{c}{s}").read_bytes())
+    out = _run_both(tmp_path, "CombineAncMut", ["-i", "unused"],
+                    [".anc", ".mut"], tool="Extract")
+    _same_bytes(out)
+    for s in (".anc", ".mut"):
+        assert (panel / f"run{s}").read_bytes() == \
+            open(out["port"][s], "rb").read()
