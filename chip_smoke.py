@@ -45,7 +45,18 @@ CLI and checks what they wrote:
   ForCategoryForPopForChromosome and MutationDensity, Extract
   SubTreesForSubpopulation, AncMutForSubregion and
   RemoveTreesWithFewMutations, Selection on the subregion; then the
-  selection scan's tails alone at a chromosome's size (50,000 SNPs).
+  selection scan's tails alone at a chromosome's size (50,000 SNPs);
+- the interchange path at N = 2048 and L = 8192: the panel as a phased VCF
+  whose REF is the derived allele at a tenth of the SNPs -> FileFormats
+  ConvertFromVcf -> ``scripts.prepare_input_files`` with an ancestor fasta
+  (which flips those SNPs back and drops 2 %), a mask (5 % N) and two
+  groups of poplabels -> ``Relate --mode All`` through the port's CLI on
+  the prepared ``.haps.gz``/``.sample``/``.dist``/``.annot`` (the native
+  ``.haps`` parser and ``.anc`` writer, each held against its Python twin)
+  -> ConvertToTreeSequence (a tskit ``.trees``, read back with the port's
+  ``kastore.load``) -> TreeView's four modes -> Extract AncToNewick ->
+  FileFormats ConvertFromNewick (every tree back) and ConvertNewickToTimeb;
+  ``pairwise_tmrca`` and ``pearson_distance`` on the card and the CPU.
 
 Phases, each printing one JSON line: ``device``, ``build``, ``inputs``,
 ``kernels`` (the incremental merge scan also at N = 2 ... 1000, the sizes
@@ -62,7 +73,8 @@ kernels and the card against the CPU, the chains' rounds, the device peak;
 ``selection_mutation_rate`` (each mode's wall seconds, the rows, chunks and
 ms of ``log_pvalue_batch`` on the card and the CPU, ``compute_freq_lin``'s
 ms a tree on both, the tails of 50,000 SNPs on the card, the device peak;
-the card against the CPU),
+the card against the CPU), ``interchange`` (each step's wall seconds, the
+flipped, dropped and masked SNPs, the launches of ``--mode All``),
 ``run_all_n4096``, ``run_all_ancient`` (with the age-aware scan's ms a
 build and the kernels it launches), ``anc_unknown``,
 ``run_all_postprocess`` (with PostProcess's ms a tree for the product, the
@@ -1258,6 +1270,42 @@ def age_scan_cost(N, ages):
                 device_busy_share=prof["device_busy_share"])
 
 
+def check_final_trees(phase, anc, muts, L, N):
+    """The checks of a final ``.anc``/``.mut`` of L SNPs and N haplotypes:
+    one row a SNP, merge-ordered binary trees at ascending positions with
+    finite branch lengths >= 0 (not all equal), valid SNP ranges, records
+    that name a tree and have age_begin <= age_end, and mutations with an
+    age. Returns (total branch length of each tree, not-mapping SNPs)."""
+    if len(muts) != L or [m["snp"] for m in muts] != list(range(L)):
+        fail(f"{phase}: {len(muts)} .mut rows for {L} SNPs")
+    prev = -1
+    totals = []
+    for mt in anc.seq:
+        check_tree(f"{phase}: tree at {mt.pos}", mt.tree.parent, N)
+        bl = mt.tree.branch_length
+        if not np.isfinite(bl).all() or (bl < 0).any():
+            fail(f"{phase}: tree at {mt.pos} has a branch length that is "
+                 "not finite or negative")
+        if np.unique(bl[:-1]).size < 2:
+            fail(f"{phase}: tree at {mt.pos} has all branch lengths equal")
+        if mt.pos <= prev:
+            fail(f"{phase}: tree positions are not ascending")
+        if (mt.tree.SNP_begin > mt.tree.SNP_end).any():
+            fail(f"{phase}: tree at {mt.pos} has SNP_begin > SNP_end")
+        prev = mt.pos
+        totals.append(float(bl.sum()))
+    for m in muts:
+        if not 0 <= m["tree"] < len(anc.seq):
+            fail(f"{phase}: SNP {m['snp']} names tree {m['tree']}")
+        if not (np.isfinite(m["age_begin"]) and np.isfinite(m["age_end"])
+                and m["age_begin"] <= m["age_end"]):
+            fail(f"{phase}: SNP {m['snp']} has age_begin > age_end")
+    mapped = [m for m in muts if len(m["branch"]) == 1]
+    if not any(m["age_end"] > 0 for m in mapped):
+        fail(f"{phase}: no mutation has an age")
+    return totals, sum(m["is_not_mapping"] for m in muts)
+
+
 def phase_run_all(G, bp, memory_gb, kernels, phase, scan, ages=None,
                   postprocess=False, hand_over=None):
     """``run_all`` (Relate --mode All) through the port's entry point, with
@@ -1323,34 +1371,7 @@ def phase_run_all(G, bp, memory_gb, kernels, phase, scan, ages=None,
     if anc.N != N or len(anc.seq) != sum(trees_per_section):
         fail(f"{phase}: .anc has N = {anc.N} and {len(anc.seq)} trees; the "
              f"sections have {trees_per_section}")
-    if len(muts) != L or [m["snp"] for m in muts] != list(range(L)):
-        fail(f"{phase}: {len(muts)} .mut rows for {L} SNPs")
-    prev = -1
-    totals = []
-    for mt in anc.seq:
-        check_tree(f"{phase}: tree at {mt.pos}", mt.tree.parent, N)
-        bl = mt.tree.branch_length
-        if not np.isfinite(bl).all() or (bl < 0).any():
-            fail(f"{phase}: tree at {mt.pos} has a branch length that is "
-                 "not finite or negative")
-        if np.unique(bl[:-1]).size < 2:
-            fail(f"{phase}: tree at {mt.pos} has all branch lengths equal")
-        if mt.pos <= prev:
-            fail(f"{phase}: tree positions are not ascending")
-        if (mt.tree.SNP_begin > mt.tree.SNP_end).any():
-            fail(f"{phase}: tree at {mt.pos} has SNP_begin > SNP_end")
-        prev = mt.pos
-        totals.append(float(bl.sum()))
-    for m in muts:
-        if not 0 <= m["tree"] < len(anc.seq):
-            fail(f"{phase}: SNP {m['snp']} names tree {m['tree']}")
-        if not (np.isfinite(m["age_begin"]) and np.isfinite(m["age_end"])
-                and m["age_begin"] <= m["age_end"]):
-            fail(f"{phase}: SNP {m['snp']} has age_begin > age_end")
-    mapped = [m for m in muts if len(m["branch"]) == 1]
-    if not any(m["age_end"] > 0 for m in mapped):
-        fail(f"{phase}: no mutation has an age")
-    n_not_mapping = sum(m["is_not_mapping"] for m in muts)
+    totals, n_not_mapping = check_final_trees(phase, anc, muts, L, N)
     extra = {}
     if ages is not None:
         # the text .anc writes the ages with six decimals
@@ -1954,6 +1975,319 @@ def phase_selection_mutation_rate(prefix):
          peak_device_memory_gb=round(peak / 1e3, 3), launches=counts)
 
 
+# ---------------------------------------------------------------------------
+# interchange: from a VCF to a tskit .trees, and the viewing tools
+# ---------------------------------------------------------------------------
+
+FLIP_SHARE = 0.10              # SNP bases of the ancestor set to the alternative
+DROP_SHARE = 0.02              # ... and set to N
+MASK_SHARE = 0.05              # bases of the mask set to N
+
+
+def write_vcf(path, G, bp, ref_derived):
+    """The panel as a phased VCF: individual i carries haplotypes 2i and
+    2i + 1, chromosome 1, SNP l named snp<l>, ancestral allele A and
+    derived allele T. As in a VCF against a reference genome, REF is the
+    reference's base, which at the SNPs ``ref_derived`` is the derived
+    allele: there REF is T, ALT is A and the genotypes count A."""
+    L, N = G.shape
+    H = np.where(ref_derived[:, None], 1 - G, G)
+    gt = np.empty((L, 2 * N), np.uint8)
+    gt[:, 0::4] = H[:, 0::2] + ord("0")
+    gt[:, 1::4] = ord("|")
+    gt[:, 2::4] = H[:, 1::2] + ord("0")
+    gt[:, 3::4] = ord("\t")
+    gt[:, -1] = ord("\n")
+    with open(path, "wb") as f:
+        f.write(("##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\t"
+                 "FILTER\tINFO\tFORMAT\t" + "\t".join(
+                     f"id{i}" for i in range(N // 2)) + "\n").encode())
+        for l in range(L):
+            ref, alt = ("T", "A") if ref_derived[l] else ("A", "T")
+            f.write(f"1\t{bp[l]}\tsnp{l}\t{ref}\t{alt}\t.\tPASS\t.\tGT\t"
+                    .encode() + gt[l].tobytes())
+
+
+def write_fasta_text(path, seq):
+    with open(path, "w") as f:
+        f.write(">1\n")
+        for s in range(0, len(seq), 60):
+            f.write(seq[s: s + 60] + "\n")
+
+
+def interchange_fastas(tmp, bp):
+    """The VCF's flips, an ancestor fasta and a mask, from SEED over the
+    panel's span. At about FLIP_SHARE of the SNPs the VCF's REF is the
+    derived allele, so the ancestor's base there (A) is the VCF's ALT and
+    the SNP flips back; at about DROP_SHARE the ancestor has N and the SNP
+    drops; elsewhere the ancestor holds random bases. Returns the paths and
+    the SNPs' (flipped, dropped, masked) flags."""
+    rng = np.random.default_rng(SEED + 13)
+    length = int(bp[-1]) + 1000
+    anc = np.asarray(list("ACGT"))[rng.integers(0, 4, length)]
+    u = rng.random(len(bp))
+    flip = u < FLIP_SHARE
+    drop = (u >= FLIP_SHARE) & (u < FLIP_SHARE + DROP_SHARE)
+    anc[bp - 1] = np.where(drop, "N", "A")
+    mask = np.where(rng.random(length) < MASK_SHARE, "N", "P")
+    paths = (os.path.join(tmp, "ancestor.fa"), os.path.join(tmp, "mask.fa"))
+    write_fasta_text(paths[0], "".join(anc))
+    write_fasta_text(paths[1], "".join(mask))
+    return paths, flip, drop, mask[bp - 1] == "N"
+
+
+def clade_lengths(tree):
+    """{leaf set as bytes: branch length} of a tree's non-root nodes."""
+    lm = tree.leaf_matrix()
+    return {lm[v].tobytes(): float(tree.branch_length[v])
+            for v in range(tree.num_nodes - 1)}
+
+
+def phase_interchange(G, bp, memory_gb, kernels):
+    """The path around ``Relate --mode All`` at N = 2048: the panel as a VCF
+    (its REF the derived allele at a tenth of the SNPs) -> FileFormats
+    ConvertFromVcf -> ``scripts.prepare_input_files`` (an ancestor fasta
+    that flips those SNPs back and drops others, a mask, two groups of
+    poplabels), which must give the panel back less the dropped and masked
+    SNPs -> ``Relate --mode All`` through the port's CLI on the card
+    from the prepared ``.haps.gz``/``.sample``/``.dist``/``.annot`` (the
+    native ``.haps`` parser and ``.anc`` writer) -> FileFormats
+    ConvertToTreeSequence -> TreeView's four modes -> Extract AncToNewick ->
+    FileFormats ConvertFromNewick, and Extract ConvertNewickToTimeb;
+    ``pairwise_tmrca`` and ``pearson_distance`` on the card and the CPU.
+    The launch counts are set to 0 just before ``--mode All`` and read just
+    after it. Every step's wall seconds go on the phase's line."""
+    from relate_tpu_torch.core import tree_comparer
+    from relate_tpu_torch.io import ancmut, kastore, native
+    from relate_tpu_torch.io import haps as hio
+    from relate_tpu_torch.pipeline import cli, scripts, tools_cli
+    from relate_tpu_torch.utils import synth
+    from relate_tpu_torch.utils.trace import STAGES
+
+    L, N = G.shape
+    seconds = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = round(time.time() - t0, 3)
+        return out
+
+    def tool(*argv):
+        if tools_cli.main(list(argv)) != 0:
+            fail(f"interchange: tools_cli {' '.join(argv[:3])} failed")
+
+    with tempfile.TemporaryDirectory(prefix="relate_smoke_ic_") as tmp:
+        def path(name):
+            return os.path.join(tmp, name)
+
+        (anc_fa, mask_fa), flip, drop, masked = interchange_fastas(tmp, bp)
+        step("write_vcf", lambda: write_vcf(path("panel.vcf"), G, bp, flip))
+        step("convert_from_vcf", lambda: tool(
+            "FileFormats", "--mode", "ConvertFromVcf", "-i",
+            path("panel.vcf"), "-o", path("vcf")))
+        back = hio.read_haps(path("vcf.haps"), path("vcf.sample"))
+        if not (np.array_equal(back.genotypes,
+                               np.where(flip[:, None], 1 - G, G))
+                and np.array_equal(back.bp, bp)
+                and back.ancestral == np.where(flip, "T", "A").tolist()):
+            fail("interchange: ConvertFromVcf did not give the VCF's rows")
+        write_poplabels(path("panel.poplabels"), N)
+        step("prepare_input_files", lambda: scripts.prepare_input_files(
+            path("vcf.haps"), path("vcf.sample"), path("prep"),
+            ancestor_path=anc_fa, mask_path=mask_fa,
+            poplabels_path=path("panel.poplabels")))
+        keep = ~drop & ~masked
+        data = {}
+        for name, native_ in (("native", True), ("python", False)):
+            data[name] = step(f"read_haps_{name}", lambda: hio.read_haps(
+                path("prep.haps.gz"), path("prep.sample"),
+                use_native=native_))
+        a, b = data["native"], data["python"]
+        if not (np.array_equal(a.genotypes, b.genotypes)
+                and np.array_equal(a.bp, b.bp) and a.rsid == b.rsid
+                and a.ancestral == b.ancestral
+                and a.alternative == b.alternative and a.chrom == b.chrom):
+            fail("interchange: the native and the Python .haps parsers "
+                 "disagree")
+        # every kept SNP is back at ancestral A, the flipped ones with
+        # their genotypes turned back
+        kept_rsid = set(a.rsid)
+        n_flipped = sum(x == "T" and r in kept_rsid
+                        for x, r in zip(back.ancestral, back.rsid))
+        counts_snps = dict(snps_in=L, flipped_by_fasta=int(flip.sum()),
+                           dropped_by_fasta=int(drop.sum()),
+                           masked=int((masked & ~drop).sum()), snps_out=a.L,
+                           flipped_out=n_flipped)
+        if a.L != int(keep.sum()) or n_flipped != int((flip & keep).sum()) \
+                or not np.array_equal(a.bp, bp[keep]) \
+                or set(a.ancestral) != {"A"} \
+                or not np.array_equal(a.genotypes, G[keep]):
+            fail(f"interchange: prepare_input_files kept {a.L} SNPs "
+                 f"({n_flipped} flipped); the fastas keep {int(keep.sum())} "
+                 f"({int((flip & keep).sum())} flipped): {counts_snps}")
+        synth.write_flat_map(path("map.txt"), int(bp[-1]))
+
+        reset_counts()
+        del STAGES[:]
+        out = path("out")
+        step("relate_all", lambda: cli.main([
+            "--mode", "All", "--haps", path("prep.haps.gz"), "--sample",
+            path("prep.sample"), "--map", path("map.txt"), "--dist",
+            path("prep.dist"), "--annot", path("prep.annot"), "--memory",
+            str(memory_gb), "--theta", str(THETA), "--seed", "1", "-o", out,
+            "--device", DEV]))
+        counts = read_counts()
+        add_launches(kernels, f"interchange_n{N}", counts)
+        missing = [k for k in ("paint_fwd", "paint_bwd", "paint_fwd_capture",
+                               "paint_bwd_capture", "merge_scan_large")
+                   if counts[k] <= 0]
+        if missing or counts["merge_scan"] or counts["merge_scan_inc"]:
+            fail(f"interchange: --mode All launched {counts}")
+        anc = ancmut.read_anc_text(out + ".anc")
+        muts = ancmut.read_mut_final(out + ".mut")
+        Lp = a.L
+        totals, n_not_mapping = check_final_trees("interchange", anc, muts,
+                                                  Lp, N)
+        dist = np.diff(a.bp)
+        if [m["dist"] for m in muts[:-1]] != dist.tolist() or \
+                [m["pos"] for m in muts] != a.bp.tolist():
+            fail("interchange: the .mut does not hold the prepared "
+                 "positions and .dist")
+        with open(path("prep.annot")) as f:
+            annot = f.read().splitlines()
+        with open(out + ".mut") as f:
+            mut_lines = f.read().splitlines()
+        if not mut_lines[0].endswith(annot[0]) or any(
+                not m.endswith(r) for m, r in zip(mut_lines[1:], annot[1:])):
+            fail("interchange: the .mut rows do not end in their annotation")
+
+        step("write_anc_native", lambda: ancmut.write_anc_text(
+            path("native.anc"), anc, use_native=True))
+        step("write_anc_python", lambda: ancmut.write_anc_text(
+            path("python.anc"), anc, use_native=False))
+        texts = [open(p, "rb").read() for p in (
+            out + ".anc", path("native.anc"), path("python.anc"))]
+        if len(set(texts)) != 1:
+            fail("interchange: the native and the Python .anc writers "
+                 "disagree")
+
+        step("convert_to_tree_sequence", lambda: tool(
+            "FileFormats", "--mode", "ConvertToTreeSequence", "-i", out,
+            "-o", path("ts")))
+        ks = kastore.load(path("ts.trees"))
+        T = len(anc.seq)
+        nt = ks["nodes/time"]
+        ep, ec = ks["edges/parent"], ks["edges/child"]
+        order = np.lexsort((ks["edges/left"], ec, ep, nt[ep]))
+        mapping = [m for m in muts if len(m["branch"]) == 1]
+        sites = ks["sites/position"]
+        if bytes(ks["format/name"]) != b"tskit.trees" or \
+                ks["format/version"].tolist() != [12, 0] or \
+                ks["sequence_length"][0] != float(a.bp[-1]) + 1.0:
+            fail("interchange: the .trees header is wrong")
+        if len(ep) != T * (2 * N - 2) or not (order == np.arange(len(ep))
+                                              ).all():
+            fail(f"interchange: {len(ep)} edges for {T} trees, or not in "
+                 "tskit order")
+        if not (nt[ep] > nt[ec]).all():
+            fail("interchange: an edge's parent is not older than its child")
+        if len(sites) != len(mapping) or \
+                len(ks["mutations/site"]) != len(mapping) or \
+                not (np.diff(sites) > 0).all() or \
+                not np.array_equal(sites, [m["pos"] for m in mapping]):
+            fail(f"interchange: {len(sites)} sites for {len(mapping)} "
+                 "mapping SNPs, or not ascending")
+
+        mid = str(int(a.bp[Lp // 2]))
+        for mode in ("TreeView", "TreeViewSample", "MutationsOnBranches",
+                     "BranchesBelowMutation"):
+            step(f"tree_view_{mode}", lambda: tool(
+                "TreeView", "--mode", mode, "-i", out, "-o",
+                path(f"tv_{mode}"), "--bp_of_interest", mid))
+        for mode in ("TreeView", "TreeViewSample"):
+            with open(path(f"tv_{mode}.coords")) as f:
+                rows = f.read().splitlines()
+            if len(rows) != 1 + 2 * N - 1:
+                fail(f"interchange: {mode} wrote {len(rows) - 1} rows")
+        for mode, suffix in (("MutationsOnBranches", ".muts"),
+                             ("BranchesBelowMutation", ".branches")):
+            with open(path(f"tv_{mode}{suffix}")) as f:
+                if len(f.read().splitlines()) < 2:
+                    fail(f"interchange: {mode} wrote no row")
+
+        step("anc_to_newick", lambda: tool(
+            "Extract", "--mode", "AncToNewick", "-i", out, "-o", path("nw"),
+            "--first_bp", "0", "--last_bp", str(int(a.bp[-1]))))
+        with open(path("nw.newick")) as f:
+            newick = f.read().splitlines()
+        if len(newick) != T:
+            fail(f"interchange: AncToNewick wrote {len(newick)} of {T} trees")
+        with open(path("pos.newick"), "w") as f:
+            for mt, line in zip(anc.seq, newick):
+                f.write(f"{mt.pos} {line}\n")
+        step("convert_from_newick", lambda: tool(
+            "FileFormats", "--mode", "ConvertFromNewick", "-i",
+            path("pos.newick"), "-o", path("imported"), "-N", "1"))
+        imported = ancmut.read_anc_text(path("imported.anc"))
+        t0 = time.time()
+        worst = 0.0
+        for mt, it in zip(anc.seq, imported.seq):
+            if it.pos != mt.pos or \
+                    tree_comparer.partition_metric(mt.tree, it.tree) != 0:
+                fail(f"interchange: the tree at {mt.pos} did not come back "
+                     "from Newick")
+            x, y = clade_lengths(mt.tree), clade_lengths(it.tree)
+            worst = max(worst, max(abs(x[k] - y[k]) for k in x))
+        seconds["newick_checks"] = round(time.time() - t0, 3)
+        if len(imported.seq) != T or worst > 5e-6:
+            fail(f"interchange: Newick branch lengths off by {worst}")
+
+        one = anc.seq[T // 2].tree
+        with open(path("one.newick"), "w") as f:
+            f.write((one.to_newick() + "\n") * 5)
+        step("convert_newick_to_timeb", lambda: tool(
+            "Extract", "--mode", "ConvertNewickToTimeb", "-i",
+            path("one"), "-o", path("one")))
+        head = np.fromfile(path("one.timeb"), dtype=np.int32, count=3)
+        ages = np.fromfile(path("one.timeb"), dtype=np.float32, offset=12)
+        # the imported tree numbers its nodes in post-order: compare the
+        # ages in order
+        want_ages = np.sort(one.coordinates())
+        if head.tolist() != [5, 1, 2 * N - 1] or ages.size != 5 * want_ages.size \
+                or np.abs(np.sort(ages[: 2 * N - 1]) - want_ages).max() > \
+                1e-6 * want_ages[-1] + 1e-4:
+            fail(f"interchange: .timeb header {head.tolist()}, or ages off")
+        have_zlib_h = os.path.exists("/usr/include/zlib.h")
+        lib = native.build()
+
+    other = anc.seq[T // 2 + 1].tree
+    tm = {d: step(f"pairwise_tmrca_{d}", lambda: tree_comparer.pairwise_tmrca(
+        one, device=d)) for d in (DEV, "cpu")}
+    pd = {d: step(f"pearson_distance_{d}",
+                  lambda: tree_comparer.pearson_distance(one, other, device=d))
+          for d in (DEV, "cpu")}
+    if not np.array_equal(tm[DEV], tm["cpu"]) or pd[DEV] != pd["cpu"]:
+        fail(f"interchange: pairwise_tmrca or pearson_distance differ "
+             f"between the card and the CPU ({pd})")
+    if tm[DEV].max() != one.coordinates()[-1]:
+        fail("interchange: the oldest pairwise TMRCA is not the root's age")
+    emit("interchange", N=N, L=L, snps=counts_snps, wall_s=seconds,
+         total_s=round(sum(seconds.values()), 3),
+         stages=[{k: r.get(k) for k in ("stage", "wall_s", "dev_peak_mb")}
+                 for r in STAGES],
+         launches=counts, trees=T, not_mapping=n_not_mapping,
+         total_branch_length_generations=dict(
+             min=min(totals), median=float(np.median(totals)),
+             max=max(totals)),
+         edges=int(len(ep)), sites=int(len(sites)),
+         newick_branch_length_error_max=worst,
+         pearson_distance=pd[DEV], native_library=os.path.basename(lib),
+         zlib_h=have_zlib_h)
+
+
 def check_window_mapping(phase, store, N):
     """PostProcess maps record i of window w with SNP start_w + i. Each
     record on one branch must hold its own SNP's carriers (flipped: the
@@ -2552,7 +2886,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="kernels,main_path,run_all,coalescent_rate,"
-                            "selection_mutation_rate,run_all_n4096,"
+                            "selection_mutation_rate,interchange,"
+                            "run_all_n4096,"
                             "run_all_ancient,anc_unknown,"
                             "run_all_postprocess,optimize,cpu_vs_card")
     args = ap.parse_args()
@@ -2574,7 +2909,7 @@ def main():
     uses_panels = {"kernels", "main_path", "run_all", "run_all_n4096",
                    "run_all_ancient", "anc_unknown", "run_all_postprocess",
                    "optimize", "profile", "coalescent_rate",
-                   "selection_mutation_rate"}
+                   "selection_mutation_rate", "interchange"}
     for N in (N_HAP, N_LARGE, N_INC) if phases & uses_panels else ():
         G, bp = make_panel(N, L_SNPS_INC if N == N_INC else L_SNPS)
         memory_gb = memory_auto
@@ -2616,6 +2951,9 @@ def main():
         phase_selection_mutation_rate(handed)
         torch.cuda.empty_cache()
     hand.cleanup()
+    if "interchange" in phases:
+        phase_interchange(*panels[N_LARGE], kernels)
+        torch.cuda.empty_cache()
     if "run_all_n4096" in phases:
         phase_run_all(*panels[N_INC], kernels, "run_all_n4096",
                       "merge_scan_inc")

@@ -131,15 +131,32 @@ def _fmt_g5(x: float) -> str:
 
 
 def write_anc_text(path: str, anc: AncesTree,
-                   num_trees: Optional[int] = None):
+                   num_trees: Optional[int] = None,
+                   use_native: bool = True):
+    """Text .anc. ``use_native=True`` formats the tree lines with the
+    native library (``io/native.py``; raises if it cannot be built or
+    loaded), ``use_native=False`` in Python: the same bytes."""
+    if anc.sample_ages is None or len(anc.sample_ages) == 0:
+        header = f"NUM_HAPLOTYPES {anc.N}\n"
+    else:
+        header = (f"NUM_HAPLOTYPES {anc.N} "
+                  + " ".join(f"{a:f}" for a in anc.sample_ages) + " \n")
+    header += (f"NUM_TREES "
+               f"{num_trees if num_trees is not None else len(anc.seq)}\n")
+    if use_native and anc.seq:
+        from . import native
+        trees = [mt.tree for mt in anc.seq]
+        open(path, "w").close()          # truncate; the library appends
+        native.write_anc_trees(
+            path, header, [mt.pos for mt in anc.seq],
+            np.stack([t.parent for t in trees]),
+            np.stack([t.branch_length for t in trees]),
+            np.stack([t.num_events for t in trees]),
+            np.stack([t.SNP_begin for t in trees]),
+            np.stack([t.SNP_end for t in trees]))
+        return
     with open(path, "w") as f:
-        if anc.sample_ages is None or len(anc.sample_ages) == 0:
-            f.write(f"NUM_HAPLOTYPES {anc.N}\n")
-        else:
-            f.write(f"NUM_HAPLOTYPES {anc.N} "
-                    + " ".join(f"{a:f}" for a in anc.sample_ages) + " \n")
-        f.write(f"NUM_TREES "
-                f"{num_trees if num_trees is not None else len(anc.seq)}\n")
+        f.write(header)
         for mt in anc.seq:
             write_anc_tree_line(f, mt)
 

@@ -289,3 +289,25 @@ def read_reference_chunk(prefix: str) -> ChunkData:
                      dist=dist.astype(np.int64), r=r, rpos=rpos,
                      state=state,
                      windows=None)
+
+
+def read_reference_parameters(path: str):
+    """Read parameters.bin / parameters_c*.bin (``data.cpp:260-298,364-375``)."""
+    import struct
+    with open(path, "rb") as f:
+        blob = f.read()
+    N, L, n3 = struct.unpack("iii", blob[:12])
+    if os.path.basename(path).startswith("parameters_c"):
+        nw = n3
+        bounds = struct.unpack(f"{nw}i", blob[12:12 + 4 * nw])
+        return {"N": N, "L_chunk": L, "num_windows": nw - 1,
+                "boundaries": list(bounds)}
+    num_chunks = n3
+    off = 12
+    (mem,) = struct.unpack("d", blob[off:off + 8])
+    off += 8
+    start = struct.unpack(f"{num_chunks}i", blob[off:off + 4 * num_chunks])
+    off += 4 * num_chunks
+    end = struct.unpack(f"{num_chunks}i", blob[off:off + 4 * num_chunks])
+    return {"N": N, "L": L, "num_chunks": num_chunks, "memory": mem,
+            "start": list(start), "end": list(end)}

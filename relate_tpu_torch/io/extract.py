@@ -6,8 +6,8 @@ Counterpart of ``relate_tpu/io/extract.py``. Behavioral reference:
 (CreateAncesTreeFileForSubpopulation.cpp), AncMutForSubregion,
 RemoveTreesWithFewMutations, ExtractDistFromMut, DivideAncMut/CombineAncMut
 (AncMutChunks.cpp), MapMutations, UnlinkTips, GetMut, AncientToModern and
-the Annotate.cpp modes. Host code over the in-memory tree sequence.
-ConvertNewickToTimeb waits for the port of the newick importer.
+the Annotate.cpp modes, and ConvertNewickToTimeb (Convert.cpp, through
+``io/importers.py``). Host code over the in-memory tree sequence.
 """
 from __future__ import annotations
 
@@ -400,3 +400,24 @@ def num_leaves_below(tree: Tree, v: int) -> int:
             stack.append(int(tree.child_left[u]))
             stack.append(int(tree.child_right[u]))
     return n
+
+
+def convert_newick_to_timeb(newick_path: str, out_path: str):
+    """Sampled newicks of one tree -> binary .timeb node-age samples
+    (RelateExtract --mode ConvertNewickToTimeb, extract/Convert.cpp:167):
+    an int32 header (samples, 1, nodes), then each sample's node ages as
+    float32."""
+    from . import importers
+    ages = []
+    with open(newick_path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            ages.append(importers.newick_to_tree(line).coordinates())
+    arr = np.asarray(ages, dtype=np.float32)
+    S, M = arr.shape
+    with open(out_path, "wb") as f:
+        np.asarray([S, 1, M], dtype=np.int32).tofile(f)
+        arr.tofile(f)
+    return out_path

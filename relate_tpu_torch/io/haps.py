@@ -79,10 +79,20 @@ def read_sample(path: str) -> Tuple[int, List[str]]:
     return n, ids
 
 
-def read_haps(haps_path: str, sample_path: str) -> HapsData:
-    """Parse a .haps(.gz) + .sample(.gz) pair into a HapsData panel
-    (pure-Python parser)."""
+def read_haps(haps_path: str, sample_path: str,
+              use_native: bool = True) -> HapsData:
+    """Parse a .haps(.gz) + .sample(.gz) pair into a HapsData panel.
+
+    ``use_native=True`` parses the ``.haps`` with the native zlib library
+    (``io/native.py``, built from ``csrc/relate_io.cpp`` at first use) and
+    raises if it cannot be built or loaded; ``use_native=False`` takes the
+    pure-Python parser. Both give the same panel."""
     N, _ = read_sample(sample_path)
+    if use_native:
+        from . import native
+        G, bp, chroms, rsids, anc, alt = native.read_haps_rows(haps_path, N)
+        return HapsData(genotypes=G, bp=bp, rsid=rsids, ancestral=anc,
+                        alternative=alt, chrom=chroms)
     chroms: List[str] = []
     rsids: List[str] = []
     bps: List[int] = []

@@ -1,6 +1,7 @@
 """Python equivalents of the reference's shell scripts of the
 post-inference tools (``scripts/``): EstimatePopulationSize.sh,
-SampleBranchLengths.sh, ReEstimateBranchLengths.sh and DetectSelection.sh.
+SampleBranchLengths.sh, ReEstimateBranchLengths.sh and DetectSelection.sh,
+and of the input script PrepareInputFiles.sh (host code).
 
 Counterpart of the same functions of ``relate_tpu/pipeline/scripts.py``.
 The shell scripts orchestrate binaries through temp files; here each one
@@ -11,13 +12,13 @@ the CUDA card). The estimators are called through their modules
 from __future__ import annotations
 
 import sys
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
 from ..core.topology import MutationRecord
 from ..evaluate import coalrate, sampling, selection
-from ..io import ancmut, extract
+from ..io import ancmut, extract, fileformats
 from ..io import haps as hio
 from ..utils.devmem import resolve_device
 
@@ -197,3 +198,49 @@ def reestimate_branch_lengths(input_prefix: str, output_prefix: str,
                                        memberships=memberships,
                                        device=device)
     _dump_pair(output_prefix, anc, recs, bp, dist, rsid, alleles)
+
+
+def prepare_input_files(haps_path: str, sample_path: str, out_prefix: str,
+                        ancestor_path: Optional[str] = None,
+                        mask_path: Optional[str] = None,
+                        remove_ids: Optional[List[str]] = None,
+                        poplabels_path: Optional[str] = None):
+    """PrepareInputFiles.sh: flip against ancestor, apply mask, drop
+    samples, remove non-biallelics; writes <out>.haps.gz/.sample/.dist and,
+    with an ancestor or poplabels, .annot. The ``.dist`` holds the plain bp
+    gaps of the SNPs that are left, as the JAX function writes it."""
+    data = hio.read_haps(haps_path, sample_path)
+    _, ids = hio.read_sample(sample_path)
+    if remove_ids:
+        drop = [i for i, x in enumerate(ids)
+                if x.rsplit("_", 1)[0] in set(remove_ids)]
+        data = fileformats.remove_samples(data, drop)
+        ids = [x for i, x in enumerate(ids) if i not in set(drop)]
+    data, _ = fileformats.remove_non_biallelic_snps(data)
+    if ancestor_path:
+        anc_seq = hio.read_fasta(ancestor_path)
+        data, _ = fileformats.flip_haps_using_ancestor(data, anc_seq)
+    else:
+        anc_seq = None
+    if mask_path:
+        mask = hio.read_fasta(mask_path)
+        data, _ = fileformats.filter_haps_using_mask(data, mask)
+    fileformats.write_haps(data, out_prefix + ".haps.gz")
+    with open(out_prefix + ".sample", "w") as f:
+        f.write("ID_1 ID_2 missing\n0 0 0\n")
+        for i in range(0, len(ids), 2):
+            f.write(f"{ids[i].rsplit('_', 1)[0]} "
+                    f"{ids[i].rsplit('_', 1)[0]} 0\n")
+    d = hio.compute_dist(data.bp)
+    with open(out_prefix + ".dist", "w") as f:
+        f.write("#pos dist\n")
+        for i in range(data.L):
+            f.write(f"{data.bp[i]} {d[i]}\n")
+    if poplabels_path or anc_seq is not None:
+        pl = hio.read_poplabels(poplabels_path) if poplabels_path else None
+        header, rows = fileformats.generate_snp_annotations(data, anc_seq, pl)
+        with open(out_prefix + ".annot", "w") as f:
+            f.write(header + "\n")
+            for r in rows:
+                f.write(r + "\n")
+    return out_prefix

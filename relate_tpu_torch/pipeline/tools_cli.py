@@ -1,6 +1,7 @@
 """CLI of the post-inference tools, mirroring the reference binaries
-RelateCoalescentRate, RelateMutationRate, RelateSelection and
-RelateExtract; counterpart of ``relate_tpu/pipeline/tools_cli.py``.
+RelateCoalescentRate, RelateMutationRate, RelateSelection, RelateExtract,
+RelateFileFormats and RelateTreeView; counterpart of
+``relate_tpu/pipeline/tools_cli.py``.
 
 Usage:
   python -m relate_tpu_torch.pipeline.tools_cli <tool> --mode <Mode> \
@@ -26,11 +27,26 @@ Finalize[ForCategory], FinalizeMutationCount and XY.
 Selection: Frequency (``.freq``, ``.lin``), Selection (``.sele``), Quality
 (``.qual``), SDS (``.sds``) and FreqDiff (``.freqdiff``, ``.zfreqdiff``).
 
-Extract: every mode of RelateExtract but ConvertNewickToTimeb (host code).
+Extract: every mode of RelateExtract, ConvertNewickToTimeb among them
+(``-i x`` reads ``x.newick``, one sampled tree a line; writes ``.timeb``).
 
-The tools run on the CUDA card; ``--device cpu`` asks for the host.
-TreeView, FileFormats, Extract's ConvertNewickToTimeb and ``--devices`` are
-not ported yet and exit with the ROADMAP item that names them.
+FileFormats: ConvertFromVcf (``-i x.vcf[.gz]``), ConvertFromHapLegendSample
+(``-i x``: ``x.hap.gz``, ``x.legend.gz``, ``x.sample``), the ``.haps``
+modes on ``-i x`` (``x.haps.gz``, ``x.sample.gz``; RemoveNonBiallelicSNPs,
+RemoveSamples ``--remove_ids``, FilterHapsUsingMask ``--mask``,
+FlipHapsUsingAncestor ``--ancestor``, which write the ``.haps`` text to
+``-o`` itself, and GenerateSNPAnnotations, ``.annot``),
+ConvertToTreeSequence[Txt] (``.trees``, tskit file format 12) and the
+importers ConvertFromNewick, ConvertFromRent (``-N`` scales the branch
+lengths), ConvertFromArgweaverSMC and ConvertFromMsPrime (``.anc``).
+
+TreeView: TreeView and TreeViewSample (``.coords`` at ``--bp_of_interest``,
+and a ``.png`` when matplotlib imports), MutationsOnBranches (``.muts``)
+and BranchesBelowMutation (``.branches``).
+
+Extract, FileFormats and TreeView are host code. The other tools run on the
+CUDA card; ``--device cpu`` asks for the host. ``--devices`` (several
+cards) is not ported yet and exits with the ROADMAP item that names it.
 """
 from __future__ import annotations
 
@@ -61,8 +77,17 @@ EXTRACT_MODES = ("AncToNewick", "SubTreesForSubpopulation",
                  "UnlinkTips", "GetMut", "AncientToModern",
                  "CountMutonBranches", "GetAllBranchesOfMut",
                  "CheckBranchPersistence", "GenerateSNPAnnotationsUsingTree")
-# the ROADMAP (section A) item of each tool or mode not ported yet
-NOT_PORTED = {"TreeView": 3, "FileFormats": 3, "ConvertNewickToTimeb": 3}
+HAPS_MODES = ("RemoveNonBiallelicSNPs", "RemoveSamples",
+              "FilterHapsUsingMask", "FlipHapsUsingAncestor",
+              "GenerateSNPAnnotations")
+IMPORT_MODES = ("ConvertFromNewick", "ConvertFromRent",
+                "ConvertFromArgweaverSMC", "ConvertFromMsPrime")
+FILE_FORMATS_MODES = (("ConvertFromVcf", "ConvertFromHapLegendSample")
+                      + HAPS_MODES + ("ConvertToTreeSequence",
+                                      "ConvertToTreeSequenceTxt")
+                      + IMPORT_MODES)
+TREE_VIEW_MODES = ("TreeView", "TreeViewSample", "MutationsOnBranches",
+                   "BranchesBelowMutation")
 
 
 def _chr_list(args):
@@ -330,6 +355,10 @@ def extract_tool(args):
     ``--device`` plays no part."""
     from ..io import ancmut, extract
     from .scripts import _dump_pair, _load_pair
+    if args.mode == "ConvertNewickToTimeb":
+        extract.convert_newick_to_timeb(args.input + ".newick",
+                                        args.output + ".timeb")
+        return
     if args.mode == "CombineAncMut":
         # inverse of DivideAncMut: chunks live at <output>_chr<i>; their
         # per-chunk metadata is concatenated, NOT taken from --input
@@ -353,7 +382,8 @@ def extract_tool(args):
         return
     if args.mode not in EXTRACT_MODES:
         raise SystemExit(f"unknown mode {args.mode!r}; Extract takes "
-                         "CombineAncMut, " + ", ".join(EXTRACT_MODES))
+                         "ConvertNewickToTimeb, CombineAncMut, "
+                         + ", ".join(EXTRACT_MODES))
     anc, recs, bp, dist, rsid, alleles = _load_pair(args.input)
     if args.mode == "AncToNewick":
         nw = extract.anc_to_newick(anc, recs, bp, args.first_bp,
@@ -441,6 +471,107 @@ def extract_tool(args):
             f.write("\n".join(rows) + "\n")
 
 
+def fileformats_tool(args):
+    """RelateFileFormats (FileFormats.cpp:17-1128, the anc.cpp importers
+    and ConvertToTreeSequence.cpp); host code."""
+    from ..io import ancmut, fileformats, importers
+    from ..io import haps as hio
+    from .scripts import _load_pair
+    if args.mode not in FILE_FORMATS_MODES:
+        raise SystemExit(f"unknown mode {args.mode!r}; FileFormats takes "
+                         + ", ".join(FILE_FORMATS_MODES))
+    if args.mode == "ConvertFromVcf":
+        fileformats.convert_from_vcf(args.input, args.output)
+    elif args.mode == "ConvertFromHapLegendSample":
+        fileformats.convert_from_hap_legend_sample(
+            args.input + ".hap.gz", args.input + ".legend.gz",
+            args.input + ".sample", args.output)
+    elif args.mode in HAPS_MODES:
+        data = hio.read_haps(args.input + ".haps.gz",
+                             args.input + ".sample.gz")
+        if args.mode == "RemoveNonBiallelicSNPs":
+            data, _ = fileformats.remove_non_biallelic_snps(data)
+        elif args.mode == "RemoveSamples":
+            # writes the .haps without a matching .sample, as the JAX CLI
+            # (ROADMAP section C)
+            with open(args.remove_ids) as f:
+                drop_names = {x.strip() for x in f if x.strip()}
+            _, ids = hio.read_sample(args.input + ".sample.gz")
+            drop = [i for i, x in enumerate(ids)
+                    if x.rsplit("_", 1)[0] in drop_names]
+            data = fileformats.remove_samples(data, drop)
+        elif args.mode == "FilterHapsUsingMask":
+            data, _ = fileformats.filter_haps_using_mask(
+                data, hio.read_fasta(args.mask))
+        elif args.mode == "FlipHapsUsingAncestor":
+            data, _ = fileformats.flip_haps_using_ancestor(
+                data, hio.read_fasta(args.ancestor))
+        else:
+            anc_seq = hio.read_fasta(args.ancestor) if args.ancestor else None
+            pl = hio.read_poplabels(args.poplabels) if args.poplabels \
+                else None
+            header, rows = fileformats.generate_snp_annotations(
+                data, anc_seq, pl)
+            with open(args.output + ".annot", "w") as f:
+                f.write(header + "\n")
+                f.write("\n".join(rows) + "\n")
+            return
+        fileformats.write_haps(data, args.output)
+    elif args.mode in ("ConvertToTreeSequence", "ConvertToTreeSequenceTxt"):
+        anc, recs, bp, dist, rsid, alleles = _load_pair(args.input)
+        fileformats.to_tree_sequence(anc, recs, bp, args.output + ".trees",
+                                     alleles=alleles)
+    else:
+        if args.mode == "ConvertFromNewick":
+            anc = importers.read_newick(args.input, args.effectiveN)
+        elif args.mode == "ConvertFromRent":
+            anc = importers.read_rent(args.input, args.effectiveN)
+        elif args.mode == "ConvertFromArgweaverSMC":
+            anc = importers.read_argweaver_smc(args.input)
+        else:
+            anc = importers.read_msprime(args.input)
+        ancmut.write_anc_text(args.output + ".anc", anc)
+
+
+def treeview_tool(args):
+    """RelateTreeView's four modes (treeview/RelateTreeView.cpp:29-44);
+    host code. The ``.png`` of TreeView needs matplotlib and is left out
+    without it; the ``.coords`` file is always written."""
+    from ..io import treeview
+    from .scripts import _load_pair
+    mode = args.mode or "TreeView"
+    if mode not in TREE_VIEW_MODES:
+        raise SystemExit(f"unknown mode {mode!r}; TreeView takes "
+                         + ", ".join(TREE_VIEW_MODES))
+    anc, recs, bp, dist, rsid, alleles = _load_pair(args.input)
+    if mode in ("TreeView", "TreeViewSample"):
+        t = treeview.tree_at_bp(anc, recs, bp, args.bp_of_interest)
+        treeview.write_plot_coords(args.output + ".coords", anc, recs, t)
+        try:
+            treeview.render_tree(anc.seq[t].tree, args.output + ".png",
+                                 anc.sample_ages)
+        except ImportError:
+            pass
+    elif mode == "MutationsOnBranches":
+        t = treeview.tree_at_bp(anc, recs, bp, args.bp_of_interest)
+        by_branch = treeview.mutations_on_branches(anc, recs, t)
+        with open(args.output + ".muts", "w") as f:
+            f.write("branch snp pos\n")
+            for b in sorted(by_branch):
+                for snp in by_branch[b]:
+                    f.write(f"{b} {snp} {bp[snp]}\n")
+    else:
+        snp = int(np.searchsorted(bp, args.bp_of_interest, side="right")) - 1
+        snp = min(max(snp, 0), len(recs) - 1)
+        nodes = treeview.branches_below_mutation(anc, recs, snp)
+        tree = anc.seq[recs[snp].tree].tree
+        coords = tree.coordinates(anc.sample_ages)
+        with open(args.output + ".branches", "w") as f:
+            f.write("node parent age\n")
+            for v in nodes:
+                f.write(f"{v} {tree.parent[v]} {coords[v]:g}\n")
+
+
 def build_parser():
     p = argparse.ArgumentParser(prog="relate_tpu_torch.tools")
     p.add_argument("tool", choices=TOOLS)
@@ -488,15 +619,12 @@ def main(argv=None):
     if args.devices:
         raise SystemExit("--devices (several cards) is not ported yet: "
                          "ROADMAP section A, item 4")
-    for name in (args.tool, args.mode):
-        if name in NOT_PORTED:
-            raise SystemExit(f"{name} is not ported yet: ROADMAP section A, "
-                             f"item {NOT_PORTED[name]}")
     from ..utils.trace import stage
     with stage(f"{args.tool}.{args.mode or 'default'}"):
         {"CoalescentRate": coalescent_rate, "MutationRate": mutation_rate,
-         "Selection": selection_tool, "Extract": extract_tool}[args.tool](
-             args)
+         "Selection": selection_tool, "Extract": extract_tool,
+         "FileFormats": fileformats_tool, "TreeView": treeview_tool}[
+             args.tool](args)
     return 0
 
 

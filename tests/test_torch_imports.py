@@ -43,7 +43,9 @@ def test_every_module_imports_without_jax():
                 "core.mcmc", "ops.merge_scan_inc", "pipeline.postprocess",
                 "evaluate.coalrate", "evaluate.sampling", "pipeline.scripts",
                 "pipeline.tools_cli", "io.extract", "evaluate.selection",
-                "evaluate.mutrate"):
+                "evaluate.mutrate", "io.kastore", "io.fileformats",
+                "io.importers", "io.treeview", "io.native", "io.refpaint",
+                "core.tree_comparer"):
         assert "relate_tpu_torch." + new in names
     code = (
         "import importlib, sys\n"
@@ -57,6 +59,8 @@ def test_every_module_imports_without_jax():
         "assert not torch.cuda.is_initialized()\n"
         "from relate_tpu_torch.ops import _build\n"
         "assert not _build._LIBS\n"
+        "from relate_tpu_torch.io import native\n"
+        "assert native._LIB is None\n"
         "print('imported', len(sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
@@ -84,7 +88,8 @@ def test_no_source_file_names_jax_or_the_jax_package():
             assert top not in ("jax", "jaxlib", "relate_tpu", "triton"), \
                 f"{f}: imports {name}"
     # the CUDA sources include no PyTorch header (plain C interface)
-    for cu in sorted((PKG / "csrc").glob("*.cu")):
+    for cu in sorted((PKG / "csrc").glob("*.cu")) + \
+            sorted((PKG / "csrc").glob("*.cpp")):
         text = cu.read_text()
         assert "torch/" not in text and "ATen" not in text, cu
         assert 'extern "C"' in text, cu

@@ -192,7 +192,7 @@ def test_stones_match_reference_paint_file(golden_dir, golden_chunk):
     """The port's checkpoints vs the reference binary's paint file on the
     example chunk (single window). The reference's RLE codec is lossy at
     1e-3 relative, which bounds achievable agreement."""
-    from relate_tpu.io import refpaint
+    from relate_tpu_torch.io import refpaint
     from relate_tpu_torch.io import chunking as tchunking
     ch = tchunking.read_reference_chunk(str(golden_dir / "chunk_0"))
     for f in ("G", "bp", "dist", "r", "rpos", "state"):

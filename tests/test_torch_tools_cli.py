@@ -3,12 +3,13 @@ against the JAX package's, mode by mode, on the same files.
 
 CoalescentRate runs on files cut from the reference's final
 ``golden.anc/.mut`` (two "chromosomes" of 1,200 SNPs each, N = 8).
-MutationRate, Selection and Extract run on the panel of
-tests/test_cli_smoke.py (``synth_panel(8, 400, seed=3)``, its two-group
+MutationRate, Selection, Extract, FileFormats and TreeView run on the panel
+of tests/test_cli_smoke.py (``synth_panel(8, 400, seed=3)``, its two-group
 ``.poplabels`` and its all-A ``anc.fasta``, here also a seeded random
-fasta) after ``run_all`` of the port on the CPU; their text files must hold
-the JAX tool's bytes, and their ``.npz`` arrays agree at rtol 1e-12 (float64
-sums in another order).
+fasta) and on the output of the port's ``run_all`` on the CPU; their text
+files must hold the JAX tool's bytes (gzipped ones decompressed, a
+``.trees`` in every key but its ``uuid``), and their ``.npz`` arrays agree
+at rtol 1e-12 (float64 sums in another order).
 
 The chains of both packages (``sampling.sample_branch_lengths`` and
 ``mcmc.run_mcmc``) are replaced by one deterministic function of the tree,
@@ -274,19 +275,15 @@ def test_reestimate_branch_lengths(inputs, tmp_path, fixed_chains, pairwise):
 
 
 def test_other_tools_name_their_roadmap_item(tmp_path):
-    for tool, mode in (("TreeView", "TreeView"),
-                       ("FileFormats", "ConvertFromVcf"),
-                       ("Extract", "ConvertNewickToTimeb")):
-        with pytest.raises(SystemExit, match="item 3"):
-            tcli.main([tool, "--mode", mode, "-i", "x", "-o",
-                       str(tmp_path / "o")])
     with pytest.raises(SystemExit, match="item 4"):
         tcli.main(["CoalescentRate", "--mode", "CoalRateForTree", "-i", "x",
                    "-o", "y", "--devices", "2"])
     for tool, listed in (("CoalescentRate", "EstimatePopulationSizeEM"),
                          ("MutationRate", "ForCategoryForPopForChromosome"),
                          ("Selection", "FreqDiff"),
-                         ("Extract", "GenerateSNPAnnotationsUsingTree")):
+                         ("Extract", "GenerateSNPAnnotationsUsingTree"),
+                         ("FileFormats", "ConvertFromMsPrime"),
+                         ("TreeView", "BranchesBelowMutation")):
         with pytest.raises(SystemExit, match=listed):
             tcli.main([tool, "--mode", "Nope", "-i", "x", "-o", "y",
                        "--device", "cpu"])
@@ -496,3 +493,165 @@ def test_extract_combine_anc_mut(panel, tmp_path):
     for s in (".anc", ".mut"):
         assert (panel / f"run{s}").read_bytes() == \
             open(out["port"][s], "rb").read()
+
+
+# ---------------------------------------------------------------------------
+# FileFormats, TreeView and Extract's ConvertNewickToTimeb on the same panel
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def ff_inputs(panel):
+    """The panel as ``toy.haps.gz``/``toy.sample.gz``, a phased VCF, IMPUTE
+    hap/legend/sample files, a mask, a list of samples to remove, and the
+    run's trees as Newick (``pos newick``), RENT+ (1-based leaves),
+    ARGweaver ``.smc`` and msprime text; ``one.newick`` holds five copies
+    of one tree."""
+    import gzip
+    from relate_tpu_torch.io import haps as thio
+    d = panel
+    data = thio.read_haps(str(d / "toy.haps"), str(d / "toy.sample"))
+    for s in (".haps", ".sample"):
+        with open(d / f"toy{s}", "rb") as f, \
+                gzip.open(d / f"toy{s}.gz", "wb") as g:
+            g.write(f.read())
+    G = data.genotypes
+    with open(d / "toy.vcf", "w") as f:
+        f.write("##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\t"
+                "FILTER\tINFO\tFORMAT\t" + "\t".join(
+                    f"s{i}" for i in range(data.N // 2)) + "\n")
+        for l in range(data.L):
+            f.write(f"1\t{data.bp[l]}\t{data.rsid[l]}\tA\tT\t.\tPASS\t.\t"
+                    "GT\t" + "\t".join(f"{G[l, 2 * i]}|{G[l, 2 * i + 1]}"
+                                       for i in range(data.N // 2)) + "\n")
+    with gzip.open(d / "imp.hap.gz", "wt") as f:
+        for l in range(data.L):
+            f.write(" ".join(str(x) for x in G[l]) + "\n")
+    with gzip.open(d / "imp.legend.gz", "wt") as f:
+        f.write("id position a0 a1\n")
+        for l in range(data.L):
+            f.write(f"{data.rsid[l]} {data.bp[l]} A T\n")
+    (d / "imp.sample").write_text("ID_1 ID_2 missing\n0 0 0\n" + "".join(
+        f"s{i} s{i} 0\n" for i in range(data.N // 2)))
+    rng = np.random.default_rng(23)
+    (d / "mask.fasta").write_text(">1\n" + "".join(np.where(
+        rng.random(int(data.bp[-1]) + 2) < 0.2, "N", "P")) + "\n")
+    (d / "remove.txt").write_text("s1\ns3\n")
+    anc = tscripts._load_pair(str(d / "run"))[0]
+    lines = [f"{mt.pos} {mt.tree.to_newick()}" for mt in anc.seq]
+    (d / "run.newick").write_text("\n".join(lines) + "\n")
+    rent = []
+    for mt in anc.seq:
+        t = mt.tree
+        nw = t.to_newick()
+        for leaf in range(t.N - 1, -1, -1):      # 1-based leaf labels
+            nw = nw.replace(f"({leaf}:", f"(#{leaf + 1}:").replace(
+                f",{leaf}:", f",#{leaf + 1}:")
+        rent.append(f"{mt.pos} {nw.replace('#', '')}")
+    (d / "run.rent").write_text("\n".join(rent) + "\n")
+    smc = ["NAMES\t" + "\t".join(str(i + 1) for i in range(anc.N)),
+           "REGION\tchr1\t1\t1000000"]
+    for mt in anc.seq:
+        smc.append(f"TREE\t{mt.pos}\t{mt.pos + 1}\t"
+                   f"{mt.tree.to_newick()[:-1]}[&&NHX:age=0];")
+    (d / "run.smc").write_text("\n".join(smc) + "\n")
+    ms = ["#msprime", f"{anc.N} {len(anc.seq)}"]
+    for mt in anc.seq:
+        t = mt.tree
+        ms.append(str(mt.pos))
+        for v in range(t.num_nodes):
+            if t.child_left[v] < 0:
+                ms.append(str(v))
+            else:
+                a, b = int(t.child_left[v]), int(t.child_right[v])
+                ms.append(f"{v} {a} {b} {t.branch_length[a]:f} "
+                          f"{t.branch_length[b]:f}")
+    (d / "run.ms").write_text("\n".join(ms) + "\n")
+    (d / "one.newick").write_text((lines[3].split()[1] + "\n") * 5)
+    return d
+
+
+def _decompressed_bytes(out):
+    import gzip
+    for f, path in out["port"].items():
+        got = []
+        for p in (path, out["jax"][f]):
+            with open(p, "rb") as h:
+                head = h.read(2)
+            with (gzip.open if head == b"\x1f\x8b" else open)(p, "rb") as h:
+                got.append(h.read())
+        assert got[0] == got[1] and got[0], f
+
+
+@pytest.mark.parametrize("mode,extra,files", [
+    ("ConvertFromVcf", ["-i", "D/toy.vcf"], [".haps", ".sample"]),
+    ("ConvertFromHapLegendSample", ["-i", "D/imp"], [".haps", ".sample"]),
+    ("RemoveNonBiallelicSNPs", ["-i", "D/toy"], [""]),
+    ("RemoveSamples", ["-i", "D/toy", "--remove_ids", "D/remove.txt"], [""]),
+    ("FilterHapsUsingMask", ["-i", "D/toy", "--mask", "D/mask.fasta"], [""]),
+    ("FlipHapsUsingAncestor", ["-i", "D/toy", "--ancestor",
+                               "D/random.fasta"], [""]),
+    ("GenerateSNPAnnotations", ["-i", "D/toy", "--ancestor",
+                                "D/random.fasta", "--poplabels",
+                                "D/pop.poplabels"], [".annot"]),
+    ("ConvertFromNewick", ["-i", "D/run.newick", "-N", "2"], [".anc"]),
+    ("ConvertFromRent", ["-i", "D/run.rent"], [".anc"]),
+    ("ConvertFromArgweaverSMC", ["-i", "D/run.smc"], [".anc"]),
+    ("ConvertFromMsPrime", ["-i", "D/run.ms"], [".anc"])])
+def test_file_formats_modes(ff_inputs, tmp_path, mode, extra, files):
+    extra = [e.replace("D/", str(ff_inputs) + "/") for e in extra]
+    out = _run_both(tmp_path, mode, extra, files, tool="FileFormats")
+    _decompressed_bytes(out)
+    if mode == "RemoveSamples":
+        # the .haps without a matching .sample, as the JAX CLI writes it
+        # (ROADMAP section C)
+        assert not (tmp_path / "port.sample").exists()
+        row = open(out["port"][""]).readline().split()
+        assert len(row) == 5 + 8 - 4
+    if mode == "FlipHapsUsingAncestor":
+        rows = open(out["port"][""]).read().splitlines()
+        assert 100 < len(rows) < 300
+        assert {r.split()[3] for r in rows} == {"A", "T"}
+
+
+@pytest.mark.parametrize("mode", ["ConvertToTreeSequence",
+                                  "ConvertToTreeSequenceTxt"])
+def test_convert_to_tree_sequence(panel, tmp_path, mode):
+    from relate_tpu_torch.io import kastore
+    out = _run_both(tmp_path, mode, ["-i", str(panel / "run")], [".trees"],
+                    tool="FileFormats")
+    got, want = (kastore.load(out[k][".trees"]) for k in ("port", "jax"))
+    assert sorted(got) == sorted(want)
+    for k in got:
+        if k != "uuid":
+            assert got[k].dtype == want[k].dtype, k
+            assert np.array_equal(got[k], want[k]), k
+    assert not np.array_equal(got["uuid"], want["uuid"])
+    nt = got["nodes/time"]
+    assert (nt[got["edges/parent"]] > nt[got["edges/child"]]).all()
+    assert len(got["mutations/site"]) > 300
+
+
+@pytest.mark.parametrize("mode,files", [
+    ("TreeView", [".coords"]), ("TreeViewSample", [".coords"]),
+    ("MutationsOnBranches", [".muts"]),
+    ("BranchesBelowMutation", [".branches"])])
+@pytest.mark.parametrize("bp_of_interest", ["0", "60000", "150000"])
+def test_tree_view_modes(panel, tmp_path, mode, files, bp_of_interest):
+    out = _run_both(tmp_path, mode, ["-i", str(panel / "run"),
+                                     "--bp_of_interest", bp_of_interest],
+                    files, tool="TreeView")
+    _same_bytes(out)
+    rows = open(out["port"][files[0]]).read().splitlines()
+    if mode.startswith("TreeView"):
+        assert len(rows) == 1 + 15
+        assert (tmp_path / "port.png").exists() == \
+            (tmp_path / "jax.png").exists()
+
+
+def test_convert_newick_to_timeb(ff_inputs, tmp_path):
+    out = _run_both(tmp_path, "ConvertNewickToTimeb",
+                    ["-i", str(ff_inputs / "one")], [".timeb"],
+                    tool="Extract")
+    _same_bytes(out)
+    hdr = np.fromfile(out["port"][".timeb"], dtype=np.int32, count=3)
+    assert list(hdr) == [5, 1, 15]
