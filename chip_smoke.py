@@ -46,6 +46,12 @@ CLI and checks what they wrote:
   SubTreesForSubpopulation, AncMutForSubregion and
   RemoveTreesWithFewMutations, Selection on the subregion; then the
   selection scan's tails alone at a chromosome's size (50,000 SNPs);
+- the mesh of every card of this host (``parallel.mesh.default_mesh()``;
+  one card on a one-card host): the Painter at N = 1024 with the mesh
+  against one card (bit for bit), ``run_all(mesh=)`` at N = 2048 whose
+  files must equal the one-card ``run_all``'s byte for byte, with each
+  kernel's launches by card, ``run_mcmc(mesh=)`` on 9 trees,
+  ``coalescence_counts_psum`` and ``dryrun``;
 - the interchange path at N = 2048 and L = 8192: the panel as a phased VCF
   whose REF is the derived allele at a tenth of the SNPs -> FileFormats
   ConvertFromVcf -> ``scripts.prepare_input_files`` with an ancestor fasta
@@ -73,7 +79,11 @@ kernels and the card against the CPU, the chains' rounds, the device peak;
 ``selection_mutation_rate`` (each mode's wall seconds, the rows, chunks and
 ms of ``log_pvalue_batch`` on the card and the CPU, ``compute_freq_lin``'s
 ms a tree on both, the tails of 50,000 SNPs on the card, the device peak;
-the card against the CPU), ``interchange`` (each step's wall seconds, the
+the card against the CPU), ``mesh`` (the cards, the Painter's and each
+stage's time with the mesh beside one card's, the launches by card, each
+card's peak memory; ``--phases mesh`` runs the one-card ``run_all`` it
+compares with, and on a host with four cards uses all four),
+``interchange`` (each step's wall seconds, the
 flipped, dropped and masked SNPs, the launches of ``--mode All``),
 ``run_all_n4096``, ``run_all_ancient`` (with the age-aware scan's ms a
 build and the kernels it launches), ``anc_unknown``,
@@ -310,8 +320,8 @@ def sweep_rows(G, bp, memory_gb, w):
     painter = painting.Painter(G, r, model, device=dev)
     bsb, bse = painter.window_boundary_sites(bounds)
     targets = np.arange(N, dtype=np.int32)
-    prep = painter._prep(targets, bsb[w], bse[w],
-                         final_raw=painter._extended_final_raw(bse[w]))
+    final_raw = painter._extended_final_raw(bse[w], targets)
+    prep = painter._prep(targets, bsb[w], bse[w], final_raw=final_raw)
     D, mism, pfac, nxt, kmask = (prep[k] for k in
                                  ("D", "mism", "pfac", "nxt", "kmask"))
     Dmax, B, _ = mism.shape
@@ -1049,23 +1059,32 @@ def phase_sweep_edges():
 
 
 def reset_counts():
+    from relate_tpu_torch.ops import _build
     from relate_tpu_torch.ops import merge_scan as ms
     from relate_tpu_torch.ops import paint_kernels as pk
-    for d in (pk.launches, ms.launches):
-        for k in d:
-            d[k] = 0
+    _build.reset_launches(pk.launches, ms.launches)
+
+
+# the kernels' rows by the names of their wrappers' counters
+COUNTER_OF = {"paint_fwd": "fwd", "paint_bwd": "bwd",
+              "paint_fwd_capture": "fwd_capture",
+              "paint_bwd_capture": "bwd_capture", "merge_scan": "merge_scan",
+              "merge_scan_large": "merge_scan_large",
+              "merge_scan_inc": "merge_scan_inc"}
 
 
 def read_counts():
     from relate_tpu_torch.ops import merge_scan as ms
     from relate_tpu_torch.ops import paint_kernels as pk
-    return {"paint_fwd": pk.launches["fwd"],
-            "paint_bwd": pk.launches["bwd"],
-            "paint_fwd_capture": pk.launches["fwd_capture"],
-            "paint_bwd_capture": pk.launches["bwd_capture"],
-            "merge_scan": ms.launches["merge_scan"],
-            "merge_scan_large": ms.launches["merge_scan_large"],
-            "merge_scan_inc": ms.launches["merge_scan_inc"]}
+    both = {**pk.launches, **ms.launches}
+    return {row: both[c] for row, c in COUNTER_OF.items()}
+
+
+def read_counts_by_card():
+    """{kernel row: {"cuda:k": launches}} since the last ``reset_counts``."""
+    from relate_tpu_torch.ops import _build
+    return {row: dict(_build.launches_by_card.get(c, {}))
+            for row, c in COUNTER_OF.items()}
 
 
 def check_tree(what, par, N):
@@ -1424,6 +1443,426 @@ def phase_run_all(G, bp, memory_gb, kernels, phase, scan, ages=None,
     if launched != tree_builds or tree_builds < len(anc.seq):
         fail(f"{phase}: {launched} merge scans for {tree_builds} tree "
              f"builds and {len(anc.seq)} trees")
+    return dict(wall_s=round(wall, 3),
+                stages={r["stage"]: r["wall_s"] for r in STAGES})
+
+
+def paint_all_windows(painter, bounds):
+    """The stepping stones and the repaint of every window; returns the
+    checkpoints and the posteriors."""
+    cps = painter.paint_stepping_stones(bounds)
+    return cps, [painter.repaint(cp) for cp in cps]
+
+
+def node_ages(anc):
+    """(trees, nodes) ages in generations from the branch lengths of a
+    merge-ordered .anc (a parent is older than its left child by that
+    child's branch length)."""
+    trees = [mt.tree for mt in anc.seq]
+    cl = np.stack([t.child_left for t in trees])
+    bl = np.stack([t.branch_length for t in trees])
+    N = anc.N
+    ages = np.zeros(cl.shape, dtype=np.float64)
+    rows = np.arange(len(trees))
+    for i in range(N, cl.shape[1]):
+        c = cl[:, i]
+        ages[:, i] = ages[rows, c] + bl[rows, c]
+    return ages
+
+
+def phase_mesh(G_hap, bp_hap, mem_hap, G, bp, memory_gb, one_card,
+               handed, kernels):
+    """The port on every card of this host as a mesh (``default_mesh()``,
+    each card named once; on a one-card host a mesh of that card, where the
+    threads, the dispatch and the gathers run with no copy between cards).
+
+    - The Painter at N = 1024 (the main path's panel) with the mesh against
+      the one-card Painter: checkpoints, posteriors and plans of every
+      window equal bit for bit; both timed after one call each that starts
+      every card.
+    - ``run_all(mesh=)`` at N = 2048, L = 8192 (the ``run_all`` phase's
+      panel, seed and budget): its .anc/.mut must equal that phase's output
+      byte for byte (``handed``); each stage's time beside that phase's
+      (``one_card``), the launches of each kernel by card (B1 to B4 and B6
+      on every card of the mesh), each card's peak memory.
+    - With more than one card, InferBranchLengths' chain batches of that
+      run on the cards from one thread, from a thread a card, from a
+      process a card, and section 0 beside threads of host-only ops
+      (``infer_threads_or_not``): why whole sections on the cards, a
+      thread each, are slower than one card.
+    - ``run_mcmc(mesh=)`` on the first 9 trees of section 0 of that run
+      against ``mesh=None`` (rtol 1e-5, atol 1e-3).
+    - ``coalescence_counts_psum`` on the node ages of the final trees
+      against a count on the host, and ``dryrun(len(mesh))``.
+    """
+    from relate_tpu_torch.parallel import mesh as pm
+
+    t_phase = time.time()
+    mesh = pm.default_mesh()
+    cards = [str(d) for d in mesh]
+    res = dict(mesh=cards, cards=len(mesh),
+               card_names=[torch.cuda.get_device_name(d) for d in mesh])
+    try:
+        mesh_steps(res, mesh, pm, G_hap, bp_hap, mem_hap, G, bp, memory_gb,
+                   one_card, handed, kernels)
+    finally:
+        # what was measured before a failure is printed too
+        emit("mesh", **res, seconds=round(time.time() - t_phase, 1))
+    if not res["run_all"]["bytes_equal"]:
+        fail(f"mesh: run_all(mesh=) wrote other bytes than one card: "
+             f"{res['run_all']['bytes']}")
+    if res["run_all"]["idle"]:
+        fail(f"mesh: kernels not launched on every card: "
+             f"{res['run_all']['idle']}")
+    if not res["run_mcmc"]["within_tolerance"]:
+        fail(f"mesh: run_mcmc(mesh=) differs from one card by "
+             f"{res['run_mcmc']['max_abs_diff']}")
+    if not res["coalescence_counts_psum"]["equal_to_host"]:
+        fail("mesh: coalescence_counts_psum differs from the host count")
+
+
+def mesh_painter(res, mesh, G_hap, bp_hap, mem_hap):
+    """The Painter at N = 1024 with the mesh against one card: checkpoints,
+    posteriors and plans of every window equal bit for bit; both timed
+    after one call each that starts every card."""
+    from relate_tpu_torch.core import painting
+    from relate_tpu_torch.io import chunking
+    from relate_tpu_torch.io import haps as hio
+
+    L1, N1 = G_hap.shape
+    gmap = hio.GeneticMap(np.array([0.0, float(bp_hap[-1]) + 2e6]),
+                          np.array([0.0, (float(bp_hap[-1]) + 2e6) / 1e6]))
+    r = hio.rates_from_rpos(hio.interpolate_rpos(gmap, bp_hap))
+    bounds = np.asarray(chunking.plan_chunks_and_windows(
+        G_hap, mem_hap)[1][0].boundaries)
+    model = painting.PaintingModel(N=N1, theta=THETA)
+    painter_times = {}
+    outs = {}
+    for name, kw in (("card", dict(device=DEV)), ("mesh", dict(mesh=mesh))):
+        painter = painting.Painter(G_hap, r, model, **kw)
+        paint_all_windows(painter, bounds)          # starts every card
+        for d in mesh:
+            torch.cuda.synchronize(d)
+        t0 = time.time()
+        outs[name] = paint_all_windows(painter, bounds)
+        for d in mesh:
+            torch.cuda.synchronize(d)
+        painter_times[name] = round(time.time() - t0, 3)
+        del painter
+    res["painter"] = dict(N=N1, L=L1, windows=len(bounds) - 1,
+                          wall_s=painter_times)
+    (cps1, post1), (cps, post) = outs["card"], outs["mesh"]
+    for w, (c1, c) in enumerate(zip(cps1, cps)):
+        for f in ("alpha", "beta", "ls_alpha", "ls_beta", "bsb", "bse"):
+            if not np.array_equal(getattr(c1, f), getattr(c, f)):
+                fail(f"mesh: Painter checkpoint {w} {f} differs from one "
+                     "card")
+    for w, (o1, o) in enumerate(zip(post1, post)):
+        same = (torch.equal(o1.topology, o.topology)
+                and torch.equal(o1.logscale, o.logscale)
+                and np.array_equal(o1.plan.D, o.plan.D)
+                and all(torch.equal(getattr(o1.plan, f), getattr(o.plan, f))
+                        for f in ("idx", "seqk", "pfac", "nxt", "kmask")))
+        if not same:
+            fail(f"mesh: Painter repaint of window {w} differs from one card")
+    res["painter"]["bit_equal"] = True
+
+
+def mesh_steps(res, mesh, pm, G_hap, bp_hap, mem_hap, G, bp, memory_gb,
+               one_card, handed, kernels):
+    """The steps of ``phase_mesh``, each adding its numbers to ``res``."""
+    from relate_tpu_torch.core import mcmc
+    from relate_tpu_torch.io import ancmut
+    from relate_tpu_torch.io.chunking import ArtifactStore
+    from relate_tpu_torch.pipeline import relate
+    from relate_tpu_torch.utils import synth
+    from relate_tpu_torch.utils.trace import STAGES
+
+    cards = res["mesh"]
+    if len(set(cards)) != len(cards) or len(mesh) != torch.cuda.device_count():
+        fail(f"mesh: {cards} is not every card of this host once")
+    # in a function of its own, so that none of its posteriors stays
+    # allocated through the run_all below (and in its peak memory)
+    mesh_painter(res, mesh, G_hap, bp_hap, mem_hap)
+    torch.cuda.empty_cache()
+
+    # run_all on the mesh at N = 2048
+    L, N = G.shape
+    with tempfile.TemporaryDirectory(prefix="relate_smoke_mesh_") as tmp:
+        prefix = os.path.join(tmp, "panel")
+        synth.write_haps_sample(G, bp, prefix)
+        synth.write_flat_map(os.path.join(tmp, "map.txt"), int(bp[-1]))
+        reset_counts()
+        del STAGES[:]
+        out = os.path.join(tmp, "out")
+        t0 = time.time()
+        relate.run_all(prefix + ".haps", prefix + ".sample",
+                       os.path.join(tmp, "map.txt"), out, seed=1,
+                       memory_gb=memory_gb, theta=THETA, cleanup=False,
+                       verbose=False, mesh=mesh)
+        for d in mesh:
+            torch.cuda.synchronize(d)
+        wall = time.time() - t0
+        counts = read_counts()
+        by_card = read_counts_by_card()
+        peaks = {}
+        for rec in STAGES:
+            for card, mb in rec.get("dev_peak_mb_by_card", {}).items():
+                peaks[card] = max(peaks.get(card, 0.0), mb)
+        equal = {ext: same_bytes(out + ext, handed + ext)
+                 for ext in (".anc", ".mut")}
+        store = ArtifactStore(out + ".tmpdir")
+        ch = store.load_chunk(0)
+        secs = [ancmut.read_anc_bin(store.path("chunk_0", f"trees_{w}.anc"))
+                for w in range(ch.windows.num_windows)]
+        final = ancmut.read_anc_text(out + ".anc")
+
+    add_launches(kernels, f"mesh_run_all_n{N}", counts)
+    for k in kernels:
+        k.setdefault("launches_by_card", {})[f"mesh_run_all_n{N}"] = \
+            by_card[k["name"]]
+    path_kernels = ("paint_fwd", "paint_bwd", "paint_fwd_capture",
+                    "paint_bwd_capture", "merge_scan_large")
+    idle = {n: [c for c in cards if by_card[n].get(c, 0) <= 0]
+            for n in path_kernels}
+    res["run_all"] = dict(
+        N=N, L=L, windows=ch.windows.num_windows, memory_gb=memory_gb,
+        wall_s=round(wall, 3), one_card_wall_s=one_card["wall_s"],
+        stages={r["stage"]: dict(mesh=r["wall_s"],
+                                 one_card=one_card["stages"].get(r["stage"]),
+                                 cpu_s=r["cpu_s"],
+                                 peak_mb_by_card=r.get("dev_peak_mb_by_card"))
+                for r in STAGES},
+        bytes_equal=all(equal.values()), bytes=equal, launches=counts,
+        launches_by_card=by_card,
+        idle={n: c for n, c in idle.items() if c},
+        peak_device_memory_mb_by_card=peaks,
+        mcmc=[m for rec in STAGES for m in rec.get("mcmc", [])])
+
+    if len(mesh) > 1:
+        res["infer_threads"] = infer_threads_or_not(mesh, secs, ch)
+
+    # run_mcmc on 9 trees with and without the mesh
+    trees = [mt.tree for mt in secs[0].seq[:9]]
+    dist = ch.dist.astype(np.float64)
+    chains = {}
+    mcmc_times = {}
+    for name, kw in (("card", dict(device=DEV)), ("mesh", dict(mesh=mesh))):
+        t0 = time.time()
+        chains[name] = mcmc.run_mcmc(trees, dist, ch.L, seed=11, **kw)
+        mcmc_times[name] = round(time.time() - t0, 3)
+    res["run_mcmc"] = dict(
+        trees=len(trees), nodes=trees[0].num_nodes,
+        max_abs_diff=float(np.abs(chains["mesh"] - chains["card"]).max()),
+        within_tolerance=bool(np.allclose(chains["mesh"], chains["card"],
+                                          rtol=1e-5, atol=1e-3)),
+        wall_s=mcmc_times, tolerance="rtol 1e-5, atol 1e-3")
+
+    # the reduction and the dry run
+    ages = node_ages(final)
+    epochs = np.concatenate([[0.0], 10.0 ** np.arange(2.0, 7.01, 0.25)])
+    t0 = time.time()
+    counts_red = pm.coalescence_counts_psum(mesh, ages, epochs).cpu().numpy()
+    psum_s = time.time() - t0
+    e = np.searchsorted(epochs.astype(np.float32),
+                        ages.astype(np.float32).ravel(), side="right") - 1
+    counts_host = np.bincount(e[e >= 0], minlength=len(epochs))
+    res["coalescence_counts_psum"] = dict(
+        trees=int(ages.shape[0]), epochs=len(epochs),
+        equal_to_host=bool(np.array_equal(counts_red, counts_host)),
+        ms=round(psum_s * 1e3, 2))
+    t0 = time.time()
+    dry = pm.dryrun(len(mesh))
+    res["dryrun"] = dict(counts=dry.tolist(), wall_s=round(time.time() - t0,
+                                                           3))
+
+
+def infer_threads_or_not(mesh, secs, ch):
+    """InferBranchLengths' chain batches (one a section, with the seeds of
+    ``relate.infer_branch_lengths``), section w on card w mod D, issued
+    four ways, each of which must give the lengths that ``run_all`` wrote:
+
+    - ``one_thread``: from this thread, the sections one after the other
+      (each section's seconds too);
+    - ``thread_a_card``: from a host thread a card, as whole sections on
+      the cards would be run in one process;
+    - ``process_a_card``: from a process a card (``chains_worker``), each
+      started after one untimed batch on its card; the wall time from the
+      common start to the last end;
+    - ``beside_host_ops``: section 0 alone on the first card, from this
+      thread, while D - 1 threads issue host-only PyTorch ops (each of
+      which takes and gives back the interpreter lock, with no CUDA).
+
+    ``cpu_s`` is each thread's or process's own CPU time
+    (``time.thread_time``). The same launches on the same cards each way,
+    so the differences are the host's: within one process or not, and the
+    interpreter lock's traffic without any CUDA call beside it."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from relate_tpu_torch.core import mcmc
+    from relate_tpu_torch.parallel import mesh as pm
+    D, W = len(mesh), len(secs)
+    dist = ch.dist.astype(np.float64)
+
+    def chains(w, dev):
+        return mcmc.run_mcmc([mt.tree for mt in secs[w].seq], dist, ch.L,
+                             seed=1 + 7919 + w, device=dev)
+
+    def synced():
+        for d in mesh:
+            torch.cuda.synchronize(d)
+        return time.time()
+
+    want = {w: np.stack([mt.tree.branch_length for mt in secs[w].seq])
+            for w in range(W)}
+    res = dict(sections=W, chains=[len(secs[w].seq) for w in range(W)])
+
+    one, per_section = {}, []
+    c0 = time.thread_time()
+    t0 = synced()
+    for w in range(W):
+        one[w] = chains(w, mesh[w % D])
+        per_section.append(round(synced() - t0 - sum(per_section), 3))
+    res["one_thread"] = dict(s=round(synced() - t0, 3),
+                             section_s=per_section,
+                             cpu_s=round(time.thread_time() - c0, 3))
+
+    def card(k, dev):
+        c = time.thread_time()
+        out = [(w, chains(w, dev)) for w in range(k, W, D)]
+        torch.cuda.synchronize(dev)
+        return out, round(time.thread_time() - c, 3)
+
+    t0 = synced()
+    parts = pm.per_card(mesh, card, min(D, W))
+    threaded = dict(p for part, _ in parts for p in part)
+    res["thread_a_card"] = dict(s=round(synced() - t0, 3),
+                                cpu_s=[c for _, c in parts])
+
+    procs, by_proc = chains_in_processes(mesh, secs, ch)
+    res["process_a_card"] = procs
+
+    stop = threading.Event()
+
+    def host_ops():
+        x = torch.zeros(8)
+        c, n = time.thread_time(), 0
+        while not stop.is_set():
+            x.add_(1.0)
+            n += 1
+        return n, round(time.thread_time() - c, 3)
+
+    with ThreadPoolExecutor(max_workers=D - 1) as pool:
+        noise = [pool.submit(host_ops) for _ in range(D - 1)]
+        c0 = time.thread_time()
+        t0 = synced()
+        beside = chains(0, mesh[0])
+        t1 = synced()
+        c1 = time.thread_time()
+        stop.set()
+        noise = [f.result() for f in noise]
+    res["beside_host_ops"] = dict(
+        section=0, s=round(t1 - t0, 3), alone_s=per_section[0],
+        cpu_s=round(c1 - c0, 3), host_threads=D - 1,
+        host_ops=[n for n, _ in noise], host_cpu_s=[c for _, c in noise])
+
+    equal = all(np.array_equal(got[w], want[w])
+                for got in (one, threaded, by_proc) for w in range(W)) \
+        and np.array_equal(beside, want[0])
+    res["equal"] = equal
+    if not equal:
+        fail("mesh: InferBranchLengths' chains on the cards differ from the "
+             "lengths run_all wrote")
+    return res
+
+
+def chains_in_processes(mesh, secs, ch, timeout_s=600.0):
+    """The ``process_a_card`` part of ``infer_threads_or_not``: one
+    ``chains_worker`` process a card, started together once every one has
+    run its untimed batch. Returns the timings and the lengths by section;
+    stops every process it started."""
+    import pickle
+    D, W = len(mesh), len(secs)
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="relate_smoke_chains_") as tmp:
+        job = os.path.join(tmp, "job.pkl")
+        with open(job, "wb") as f:
+            pickle.dump(dict(trees=[[mt.tree for mt in s.seq] for s in secs],
+                             dist=ch.dist.astype(np.float64), L=int(ch.L),
+                             mesh=[str(d) for d in mesh]), f)
+        procs = [subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.chains_worker({job!r}, {k})"],
+            cwd=here) for k in range(min(D, W))]
+        try:
+            t_end = time.time() + timeout_s
+            while not all(os.path.exists(f"{job}.ready{k}")
+                          for k in range(len(procs))):
+                if any(p.poll() is not None for p in procs) \
+                        or time.time() > t_end:
+                    fail("mesh: a chains_worker process ended or hung before "
+                         "its start")
+                time.sleep(0.01)
+            open(job + ".go", "w").close()
+            for p in procs:
+                if p.wait(timeout=max(1.0, t_end - time.time())) != 0:
+                    fail(f"mesh: a chains_worker process exited {p.returncode}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        outs = []
+        for k in range(len(procs)):
+            with open(f"{job}.out{k}", "rb") as f:
+                outs.append(pickle.load(f))
+    lengths = {w: bl for o in outs for w, bl in o["lengths"].items()}
+    return dict(s=round(max(o["t1"] for o in outs)
+                        - min(o["t0"] for o in outs), 3),
+                each_s=[round(o["t1"] - o["t0"], 3) for o in outs],
+                warm_s=[o["warm_s"] for o in outs],
+                cpu_s=[o["cpu_s"] for o in outs]), lengths
+
+
+def chains_worker(job, k):
+    """One process of ``chains_in_processes``: on card k of the job's mesh,
+    the chains of section k once untimed, then, when the parent says go,
+    those of sections k, k + D, ... timed; writes the lengths and times."""
+    import pickle
+
+    from relate_tpu_torch.core import mcmc
+    with open(job, "rb") as f:
+        j = pickle.load(f)
+    dev = torch.device(j["mesh"][k])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    D, W = len(j["mesh"]), len(j["trees"])
+
+    def chains(w):
+        out = mcmc.run_mcmc(j["trees"][w], j["dist"], j["L"],
+                            seed=1 + 7919 + w, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return out
+
+    t = time.time()
+    chains(k)
+    warm_s = round(time.time() - t, 3)
+    open(f"{job}.ready{k}", "w").close()
+    while not os.path.exists(job + ".go"):
+        time.sleep(0.001)
+    c0, t0 = time.thread_time(), time.time()
+    lengths = {w: chains(w) for w in range(k, W, D)}
+    t1 = time.time()
+    with open(f"{job}.out{k}", "wb") as f:
+        pickle.dump(dict(lengths=lengths, t0=t0, t1=t1, warm_s=warm_s,
+                         cpu_s=round(time.thread_time() - c0, 3)), f)
+
+
+def same_bytes(a, b):
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
 
 
 def write_poplabels(path, N):
@@ -2886,7 +3325,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="kernels,main_path,run_all,coalescent_rate,"
-                            "selection_mutation_rate,interchange,"
+                            "selection_mutation_rate,mesh,interchange,"
                             "run_all_n4096,"
                             "run_all_ancient,anc_unknown,"
                             "run_all_postprocess,optimize,cpu_vs_card")
@@ -2909,7 +3348,7 @@ def main():
     uses_panels = {"kernels", "main_path", "run_all", "run_all_n4096",
                    "run_all_ancient", "anc_unknown", "run_all_postprocess",
                    "optimize", "profile", "coalescent_rate",
-                   "selection_mutation_rate", "interchange"}
+                   "selection_mutation_rate", "interchange", "mesh"}
     for N in (N_HAP, N_LARGE, N_INC) if phases & uses_panels else ():
         G, bp = make_panel(N, L_SNPS_INC if N == N_INC else L_SNPS)
         memory_gb = memory_auto
@@ -2936,9 +3375,10 @@ def main():
     # selection_mutation_rate phases
     hand = tempfile.TemporaryDirectory(prefix="relate_smoke_coal_")
     handed = os.path.join(hand.name, f"run_all_n{N_LARGE}")
-    if phases & {"run_all", "coalescent_rate", "selection_mutation_rate"}:
-        phase_run_all(*panels[N_LARGE], kernels, "run_all",
-                      "merge_scan_large", hand_over=handed)
+    if phases & {"run_all", "coalescent_rate", "selection_mutation_rate",
+                  "mesh"}:
+        one_card = phase_run_all(*panels[N_LARGE], kernels, "run_all",
+                                 "merge_scan_large", hand_over=handed)
         torch.cuda.empty_cache()
     if "coalescent_rate" in phases:
         pair = os.path.join(hand.name, f"run_all_n{N_PAIR}")
@@ -2949,6 +3389,10 @@ def main():
         torch.cuda.empty_cache()
     if "selection_mutation_rate" in phases:
         phase_selection_mutation_rate(handed)
+        torch.cuda.empty_cache()
+    if "mesh" in phases:
+        phase_mesh(*panels[N_HAP], *panels[N_LARGE], one_card, handed,
+                   kernels)
         torch.cuda.empty_cache()
     hand.cleanup()
     if "interchange" in phases:

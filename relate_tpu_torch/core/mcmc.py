@@ -42,7 +42,13 @@ What differs from the JAX module, on purpose:
   step, a sweep or an iteration gives the same state;
 - PyTorch runs eagerly, so there is no compiled block to cache, no
   power-of-two batch bucket and no fused span of rounds: the convergence loop
-  checks once per round, with ``conv.all()`` as its only download.
+  checks once per round, with ``conv.all()`` as its only download;
+- with a mesh (``run_mcmc(mesh=)``) the batch is cut into contiguous blocks
+  of chains, one a card, each driven by a thread of its own. Every card
+  draws the uniforms of the whole batch from the same seed and keeps its
+  rows (``Draws(rows=)``), the host coin is the same on every card, and the
+  batch stops when all of its chains have converged (``BatchVote``), so the
+  chains are those of one card.
 
 Deliberate deviations from the reference, shared with the JAX module
 (distribution-level): the acceptance ratio of ``UpdateOneEvent`` includes
@@ -62,11 +68,13 @@ iteration.
 """
 from __future__ import annotations
 
+import threading
 from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..parallel.mesh import as_mesh, blocks, per_card
 from ..utils.devmem import resolve_device
 from ..utils.trace import note
 from .trees import Tree
@@ -967,22 +975,37 @@ class Draws:
     on the chains' device for the uniforms, and a host generator for the one
     coin per step (drawing the coin on the card would cost a download per
     iteration). Both are seeded from ``seed`` and owned by one ``run_mcmc``
-    call."""
+    call.
 
-    def __init__(self, seed: int, device):
+    ``rows`` (lo, hi, B): these chains are rows lo:hi of a batch of B. A
+    draw over the batch axis (``batch_axis``) then draws the whole batch's
+    uniforms and keeps these rows, so a block of a batch advances its chains
+    as the whole batch would (a generator gives the same numbers for one
+    seed and shape on every card)."""
+
+    def __init__(self, seed: int, device, rows=None):
         self.device = torch.device(device)
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(int(seed) & 0x7FFFFFFFFFFFFFFF)
         self.host = np.random.default_rng(int(seed))
+        self.rows = rows
 
-    def uniform(self, *shape, high: float = 1.0):
-        u = torch.rand(shape, generator=self.gen, device=self.device,
-                       dtype=torch.float32)
+    def uniform(self, *shape, high: float = 1.0,
+                batch_axis: Optional[int] = None):
+        if self.rows is not None and batch_axis is not None:
+            lo, hi, B = self.rows
+            full = list(shape)
+            full[batch_axis] = B
+            u = torch.rand(full, generator=self.gen, device=self.device,
+                           dtype=torch.float32).narrow(batch_axis, lo, hi - lo)
+        else:
+            u = torch.rand(shape, generator=self.gen, device=self.device,
+                           dtype=torch.float32)
         return u if high == 1.0 else u * high
 
     def iteration(self, B: int, M: int) -> IterationDraws:
-        small = self.uniform(3, B)
-        big = self.uniform(5, B, M)
+        small = self.uniform(3, B, batch_axis=1)
+        big = self.uniform(5, B, M, batch_axis=1)
         return IterationDraws(
             do_ue=bool(self.host.random() <= P2), un=small[0], u1s=small[1],
             u2s=small[2], age=((big[0], big[1]), (big[2], big[3])),
@@ -1077,16 +1100,18 @@ class PairRunner:
             if act is not None:
                 act.copy_(active)
             for _ in range(full):
-                u.copy_(self.draws.uniform(PAIR_CHUNK, 3, B))
+                u.copy_(self.draws.uniform(PAIR_CHUNK, 3, B, batch_axis=2))
                 graph.replay()
             s = ChainState(*(x.clone() for x in state))
         else:
             for _ in range(full):
-                s = pair_chunk(self.st, s, self.draws.uniform(PAIR_CHUNK, 3,
-                                                              B),
+                s = pair_chunk(self.st, s,
+                               self.draws.uniform(PAIR_CHUNK, 3, B,
+                                                  batch_axis=2),
                                accumulate, active, self.use_ages)
         if rest:
-            s = pair_chunk(self.st, s, self.draws.uniform(rest, 3, B),
+            s = pair_chunk(self.st, s,
+                           self.draws.uniform(rest, 3, B, batch_axis=2),
                            accumulate, active, self.use_ages)
         return s
 
@@ -1119,17 +1144,38 @@ def converged(st: ChainStatic, s: ChainState):
     return count_ok & node_ok[:, N:].all(dim=1)
 
 
+class BatchVote:
+    """The stopping rule of a chain batch cut into ``n`` blocks, each run by
+    a thread of its own: once a round every block says whether all of its
+    chains have converged, and every block gets the batch's verdict."""
+
+    def __init__(self, n: int):
+        self.done = [False] * n
+        self.barrier = threading.Barrier(n)
+
+    def __call__(self, k: int, done: bool) -> bool:
+        self.done[k] = done
+        self.barrier.wait()
+        verdict = all(self.done)
+        self.barrier.wait()      # no block votes again before all have read
+        return verdict
+
+    def abort(self):
+        self.barrier.abort()
+
+
 def run_to_convergence(st: ChainStatic, s: ChainState, draws: Draws,
                        transient_steps: int, block_steps: int,
                        max_rounds: int, use_vp: bool,
-                       use_ages: bool = False):
+                       use_ages: bool = False, all_done=None):
     """Transient, then rounds of ``block_steps`` until every tree has
     converged or ``max_rounds`` is reached; converged chains are frozen.
     ``transient_steps``/``block_steps`` are PROPOSAL budgets in the
     reference's units, converted to iterations through
     ``proposals_per_iteration`` (one proposal an iteration under the
     pairwise prior, ``st.F`` set). One ``conv.all()`` download per round.
-    Returns (state, rounds, conv)."""
+    ``all_done`` (a block of a batch): maps this block's ``conv.all()`` to
+    the batch's. Returns (state, rounds, conv)."""
     B, M = s.coords.shape
     use_pair = st.F is not None
     ppi = 1.0 if use_pair else proposals_per_iteration((M + 1) // 2, M)
@@ -1150,7 +1196,8 @@ def run_to_convergence(st: ChainStatic, s: ChainState, draws: Draws,
         s = advance(s, block_iters, True, ~conv)
         conv = conv | converged(st, s)
         rounds += 1
-        if bool(conv.all()):
+        done = bool(conv.all())
+        if done if all_done is None else all_done(done):
             break
     return s, rounds, conv
 
@@ -1308,7 +1355,7 @@ def run_mcmc(trees: List[Tree], dist: np.ndarray, L: int,
              group_R: Optional[np.ndarray] = None,
              memberships: Optional[np.ndarray] = None,
              max_rounds: int = 2000, max_batch: Optional[int] = None,
-             device=None) -> np.ndarray:
+             device=None, mesh=None) -> np.ndarray:
     """Estimate branch lengths for a batch of trees on ``device`` (None:
     the CUDA card).
 
@@ -1320,14 +1367,20 @@ def run_mcmc(trees: List[Tree], dist: np.ndarray, L: int,
     and memberships the (N,) group index of each haplotype
     (MCMCCoalRatesForRelate); ``rates`` is then not used. ``max_batch``
     bounds the chains advanced together (default ``chain_batch_cap``);
-    larger batches run in parts with their own seeds.
+    larger batches run in parts with their own seeds. ``mesh``
+    (``parallel.mesh.Mesh``; ``device`` is then not used): each part's
+    chains are cut into contiguous blocks over the mesh's cards, one
+    thread a card, with the draws and the stopping rule of the whole part,
+    so the lengths are those of one card.
     Each part adds one dict (chains, nodes, rounds, chains converged) under
     ``mcmc`` to the record of the ``utils.trace`` stage it runs in. Every call makes its generators from ``seed`` and
     shares none, so calls on several threads give what they give alone.
     Returns branch lengths (B, M) in generations, float64."""
     if (group_R is None) != (memberships is None):
         raise ValueError("group_R and memberships go together")
-    device = resolve_device(device)
+    mesh = as_mesh(mesh)
+    if mesh is None:
+        device = resolve_device(device)
     if max_batch is None:
         max_batch = chain_batch_cap(trees[0].num_nodes)
     if len(trees) > max_batch:
@@ -1338,8 +1391,44 @@ def run_mcmc(trees: List[Tree], dist: np.ndarray, L: int,
                 seed=seed + 7 * (s + 1), epochs=epochs, rates=rates,
                 sample_ages=sample_ages, group_R=group_R,
                 memberships=memberships, max_rounds=max_rounds,
-                max_batch=max_batch, device=device))
+                max_batch=max_batch, device=device, mesh=mesh))
         return np.concatenate(outs, axis=0)
+    kw = dict(Ne=Ne, mu=mu, seed=seed, epochs=epochs, rates=rates,
+              sample_ages=sample_ages, group_R=group_R,
+              memberships=memberships, max_rounds=max_rounds)
+    B = len(trees)
+    if mesh is None:
+        bl, rounds, conv = _run_chains(trees, dist, L, device=device, **kw)
+    else:
+        parts = blocks(B, len(mesh))
+        vote = BatchVote(len(parts))
+
+        def run(k, dev):
+            lo, hi = parts[k]
+            try:
+                return _run_chains(trees[lo:hi], dist, L, device=dev,
+                                   rows=(lo, hi, B),
+                                   all_done=lambda done: vote(k, done), **kw)
+            except BaseException:
+                vote.abort()        # the other blocks must not wait for k
+                raise
+        outs = per_card(mesh, run, len(parts))
+        bl = np.concatenate([o[0] for o in outs], axis=0)
+        rounds = max(o[1] for o in outs)
+        conv = sum(o[2] for o in outs)
+    note("mcmc", dict(chains=B, nodes=trees[0].num_nodes, rounds=rounds,
+                      converged=conv))
+    return bl
+
+
+def _run_chains(trees: List[Tree], dist: np.ndarray, L: int, Ne: float,
+                mu: float, seed: int, epochs, rates, sample_ages, group_R,
+                memberships, max_rounds: int, device, rows=None,
+                all_done=None):
+    """One batch of chains on ``device``: with ``rows`` (lo, hi, B) rows
+    lo:hi of a batch of B (see ``Draws``), with ``all_done`` the batch's
+    stopping rule (``run_to_convergence``). Returns (branch lengths,
+    rounds, chains converged)."""
     B = len(trees)
     N = trees[0].N
     M = trees[0].num_nodes
@@ -1362,18 +1451,17 @@ def run_mcmc(trees: List[Tree], dist: np.ndarray, L: int,
             coords0[b] = _initial_coords(sidx0[b], N, ages_n)
         state = init_chain_state(coords0, order0, sidx0, device)
     else:
-        tie = Draws(seed ^ 0x5BF03A7, device).uniform(B, M, high=0.99)
+        tie = Draws(seed ^ 0x5BF03A7, device, rows).uniform(
+            B, M, high=0.99, batch_axis=0)
         state, _ = device_init_state(st.parent, N, tie, st.depth)
-    draws = Draws(seed, device)
+    draws = Draws(seed, device, rows)
 
     # transient + PER-TREE convergence loop: converged chains freeze (their
     # state and running sums stop updating) while the rest continue
     block_steps = max(delta, 128)
     state, rounds, conv = run_to_convergence(
         st, state, draws, 50 * delta, block_steps, max_rounds, use_vp,
-        use_ages)
-    note("mcmc", dict(chains=B, nodes=M, rounds=rounds,
-                      converged=int(conv.sum().item())))
+        use_ages, all_done)
 
     # float64 host epilogue
     final_ssum = state.ssum.cpu().numpy().astype(np.float64)
@@ -1382,4 +1470,4 @@ def run_mcmc(trees: List[Tree], dist: np.ndarray, L: int,
     avg = final_ssum / np.maximum(final_count, 1.0)[:, None]
     pav = np.take_along_axis(avg, np.maximum(parent, 0), axis=1)
     bl = np.where(parent >= 0, Ne * (pav - avg), 0.0)
-    return np.maximum(bl, 0.0)
+    return np.maximum(bl, 0.0), rounds, int(conv.sum().item())

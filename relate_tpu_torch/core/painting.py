@@ -27,9 +27,17 @@ on the host and on the device alike, the posterior is ``(Dmax, B, N)``.
 Memory model: the full posterior of one window is materialised at once;
 windows are sized upstream so that it fits. Stepping-stone checkpoints
 between windows play the role of activation checkpointing.
+
+Several cards (``Painter(mesh=)``): the target axis is cut into contiguous
+blocks of ceil(N/D) targets, one a card of the mesh. Each card holds its own
+copy of the panel and runs the sweeps of its block on a host thread of its
+own, its logscale chain included; a target's sweeps do not depend on the
+other targets of its batch, so the joined checkpoints and posteriors equal
+the one-card Painter's bit for bit.
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple
 
@@ -37,6 +45,7 @@ import numpy as np
 import torch
 
 from ..ops import paint_kernels
+from ..parallel.mesh import blocks, device_and_mesh, gather, per_card
 from ..utils.devmem import device_memory_gb, resolve_device
 
 P_CAP = 0.99
@@ -237,13 +246,21 @@ def device_plan(model: PaintingModel, G: torch.Tensor, GT: torch.Tensor,
     pfac = torch.where(padm, zero, pfac).to(torch.float32)
     nxt = torch.where(padm, zero, nxt).to(torch.float32)
 
-    # per-step mismatch stream (Dmax, B, N): one gather of panel rows
-    grows = G[idx.t().reshape(-1)].view(Dmax, B, N)
-    mism = (seqk.t()[:, :, None] > grows).contiguous().view(torch.int8)
+    mism = mismatch_rows(G, idx, seqk)
     ncol = torch.arange(N, device=dev, dtype=torch.int64)[None, :]
     kmask = (ncol != targets[:, None]).to(torch.float32)
     return (idx.to(torch.int32), seqk, D[:, 0].to(torch.int32), mism,
             pfac.contiguous(), nxt.contiguous(), kmask)
+
+
+def mismatch_rows(G: torch.Tensor, idx: torch.Tensor,
+                  seqk: torch.Tensor) -> torch.Tensor:
+    """The per-step mismatch stream (Dmax, B, N) int8 of a plan's ``idx`` /
+    ``seqk`` (B, Dmax): 1 where the target carries the derived allele at its
+    step and the source does not. One gather of panel rows."""
+    B, Dmax = idx.shape
+    rows = G[idx.t().reshape(-1).long()].view(Dmax, B, G.shape[1])
+    return (seqk.t()[:, :, None] > rows).contiguous().view(torch.int8)
 
 
 class PaintOutput(NamedTuple):
@@ -301,11 +318,16 @@ class Checkpoint:
 
 class Painter:
     """Painting front end for one chunk: holds the genotype panel on the device,
-    computes stepping-stone checkpoints per window and full posteriors."""
+    computes stepping-stone checkpoints per window and full posteriors.
+
+    With a ``mesh`` (``parallel.mesh.Mesh`` or a list of devices) the targets
+    are cut over its cards (``shards``, one one-card Painter a card, sharing
+    the host caches); results are joined on the mesh's first device, which
+    is ``device``."""
 
     def __init__(self, G: np.ndarray, r: np.ndarray, model: PaintingModel,
-                 device=None):
-        self.device = resolve_device(device)
+                 device=None, mesh=None):
+        self.device, self.mesh = device_and_mesh(device, mesh)
         self.G_host = np.ascontiguousarray(G, dtype=np.uint8)
         self.G = torch.from_numpy(self.G_host).to(self.device)
         self.GT = self.G.t().contiguous()
@@ -316,6 +338,25 @@ class Painter:
         self._cumG = None
         self._S = None
         self._S_dev = None
+        self.shards = None
+        if self.mesh is not None:
+            self._cum_counts()
+            self._r_prefix()
+            self._derived_csr()
+            self.shards = [self._replica(d) for d in self.mesh]
+
+    def _replica(self, device) -> "Painter":
+        """A one-card Painter of the same panel on ``device``, sharing this
+        one's host caches (its device tensors are its own)."""
+        device = resolve_device(device)
+        p = copy.copy(self)
+        p.mesh = p.shards = None
+        if device != self.device:
+            p.device = device
+            p.G = torch.from_numpy(self.G_host).to(device)
+            p.GT = p.G.t().contiguous()
+            p._S_dev = None
+        return p
 
     # -- caches ------------------------------------------------------------
     def _cum_counts(self) -> np.ndarray:
@@ -394,9 +435,9 @@ class Painter:
                                  prep["counts"] + 1, cnt))
         return rows.astype(np.int64)
 
-    def _to_dev(self, arr) -> torch.Tensor:
-        return torch.from_numpy(
-            np.ascontiguousarray(arr, dtype=np.float32)).to(self.device)
+    def _to_dev(self, arr, device=None) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(
+            arr, dtype=np.float32)).to(device or self.device)
 
     # -- boundaries ------------------------------------------------------
     def window_boundary_sites(self, boundaries: np.ndarray
@@ -437,14 +478,14 @@ class Painter:
         checkpoint. Backward symmetric. The boundary slabs stay on the device
         between windows (each captured (B, N) slab feeds the next sweep
         directly); logscales are chained in float64 on the host. Same total
-        cost as the reference's full passes, single-window memory.
+        cost as the reference's full passes, single-window memory. With a
+        mesh each card chains its block of targets through every window on
+        its own thread, and each window's slabs are joined afterwards.
         """
         boundaries = np.asarray(boundaries)
         W = len(boundaries) - 1
         N = self.N
-        targets = np.arange(N, dtype=np.int32)
         bsb, bse = self.window_boundary_sites(boundaries)
-        theta = float(self.model.theta)
 
         # device-resident slab budget: keep at most K windows' checkpoint
         # slabs on the card (a quarter of its memory), download the rest
@@ -455,26 +496,61 @@ class Painter:
         else:
             K_dev = W
 
+        if self.mesh is None:
+            a_sl, lsa0, b_sl, lsbW = self._stones(
+                bsb, bse, np.arange(N, dtype=np.int32), K_dev)
+        else:
+            parts = blocks(N, len(self.mesh))
+            outs = per_card(self.mesh, lambda k, _: self.shards[k]._stones(
+                bsb, bse, np.arange(*parts[k], dtype=np.int32), K_dev),
+                len(parts))
+
+            def join(i, w):
+                sl = [o[i][w] for o in outs]
+                if isinstance(sl[0], torch.Tensor):
+                    return gather(sl, self.device)
+                return np.concatenate(sl)
+            a_sl, lsa0, b_sl, lsbW = ([join(i, w) for w in range(W)]
+                                      for i in range(4))
+
+        def dev(x):
+            return x if isinstance(x, torch.Tensor) else None
+
+        def host(x):
+            return None if isinstance(x, torch.Tensor) else x
+        return [Checkpoint(alpha=host(a_sl[w]), beta=host(b_sl[w]),
+                           ls_alpha=lsa0[w], bsb=bsb[w],
+                           ls_beta=lsbW[w], bse=bse[w],
+                           a0_dev=dev(a_sl[w]), be_dev=dev(b_sl[w]))
+                for w in range(W)]
+
+    def _stones(self, bsb, bse, targets, K_dev):
+        """The chained sweeps of ``targets`` on this Painter's device. Returns
+        per window the alpha slab (a (B, N) tensor for the first ``K_dev``
+        windows, else a host array), the float64 alpha logscales, the beta
+        slab and the beta logscales."""
+        W = bsb.shape[0]
+        N = self.N
+        B = len(targets)
+        bsb, bse = bsb[:, targets], bse[:, targets]
+        theta = float(self.model.theta)
+
         def keep(w, dev_slab):
-            if w < K_dev:
-                return dev_slab, None
-            return None, dev_slab.cpu().numpy()
+            return dev_slab if w < K_dev else dev_slab.cpu().numpy()
 
         alphas0: list = [None] * W
         lsa0: list = [None] * W
         betasW: list = [None] * W
         lsbW: list = [None] * W
-        a_host: list = [None] * W
-        b_host: list = [None] * W
 
         def want_of(rows):
             return torch.from_numpy(rows.astype(np.int32)).to(self.device)
 
         a_dev = self._to_dev(initial_alpha(self.G_host, self.model, 0,
                                            targets))
-        lsa = np.zeros(N, dtype=np.float64)
+        lsa = np.zeros(B, dtype=np.float64)
         for w in range(W):
-            alphas0[w], a_host[w] = keep(w, a_dev)
+            alphas0[w] = keep(w, a_dev)
             lsa0[w] = lsa
             if w == W - 1:
                 break
@@ -486,18 +562,18 @@ class Painter:
             lsa = lsa + lv.cpu().numpy().astype(np.float64)
             del prep
 
-        Dtot = self.G_host[1:-1].sum(axis=0).astype(np.int64) + 2
-        b_dev = torch.ones((N, N), dtype=torch.float32, device=self.device)
+        Dtot = self.G_host[1:-1].sum(axis=0).astype(np.int64)[targets] + 2
+        b_dev = torch.ones((B, N), dtype=torch.float32, device=self.device)
         lsb = normalizing_constant(self.model, Dtot).astype(np.float64)
         for w in range(W - 1, -1, -1):
-            betasW[w], b_host[w] = keep(w, b_dev)
+            betasW[w] = keep(w, b_dev)
             lsbW[w] = lsb
             if w == 0:
                 break
             # extend the final interval to the next derived site beyond the
             # window so the chained checkpoints reproduce the reference's
             # single full-pass interval structure exactly
-            final_raw = self._extended_final_raw(bse[w])
+            final_raw = self._extended_final_raw(bse[w], targets)
             prep = self._prep(targets, bsb[w], bse[w], final_raw=final_raw)
             rows = self._rows_of_sites(prep, targets, bse[w - 1])
             b_dev, lv = paint_kernels.bwd_capture(
@@ -505,37 +581,37 @@ class Painter:
                 prep["pfac"], prep["nxt"], theta=theta)
             lsb = lsb + lv.cpu().numpy().astype(np.float64)
             del prep
+        return alphas0, lsa0, betasW, lsbW
 
-        return [Checkpoint(alpha=a_host[w], beta=b_host[w],
-                           ls_alpha=lsa0[w], bsb=bsb[w],
-                           ls_beta=lsbW[w], bse=bse[w],
-                           a0_dev=alphas0[w], be_dev=betasW[w])
-                for w in range(W)]
-
-    def _extended_final_raw(self, bse_row: np.ndarray) -> np.ndarray:
-        """Full-pass interval at each target's window-end step: accumulated r
-        from bse to the next derived step of that target beyond it."""
+    def _extended_final_raw(self, bse_row: np.ndarray,
+                            targets: np.ndarray) -> np.ndarray:
+        """Full-pass interval at each target's window-end step (``bse_row``,
+        one a target): accumulated r from bse to the next derived step of
+        that target beyond it."""
         r = self.r
-        L, N = self.L, self.N
+        L = self.L
         S = self._r_prefix()
         indptr, csr_cols = self._derived_csr()
-        out = np.empty(N, dtype=np.float64)
-        for k in range(N):
-            b = int(bse_row[k])
+        out = np.empty(len(targets), dtype=np.float64)
+        for i, k in enumerate(targets):
+            b = int(bse_row[i])
             if b >= L - 1:
-                out[k] = r[L - 1]
+                out[i] = r[L - 1]
                 continue
             core = csr_cols[indptr[k]:indptr[k + 1]]
             j = np.searchsorted(core, b, side="right")
             nd = int(core[j]) if j < len(core) else L - 1
-            out[k] = S[nd] - S[b]
+            out[i] = S[nd] - S[b]
         return out
 
     # -- full posterior --------------------------------------------------
     def repaint(self, cp: Checkpoint,
                 targets: Optional[np.ndarray] = None) -> PaintOutput:
         """Full posterior over a window from its checkpoint
-        (RePaintSection equivalent): one forward and one backward sweep."""
+        (RePaintSection equivalent): one forward and one backward sweep.
+        With a mesh each card sweeps its block of the targets and the
+        outputs are joined on the first device, the step axis padded to
+        the longest block as the one-card plan pads it."""
         if targets is None:
             targets = np.arange(self.N, dtype=np.int32)
         targets = np.asarray(targets, dtype=np.int32)
@@ -545,13 +621,37 @@ class Painter:
             np.array_equal(targets, np.arange(self.N))
         bsb = cp.bsb[targets] if np.ndim(cp.bsb) else cp.bsb
         bse = cp.bse[targets] if np.ndim(cp.bse) else cp.bse
-        on_dev = (cp.a0_dev is not None and cp.be_dev is not None and all_t
-                  and cp.a0_dev.device == self.device)
-        if on_dev:
-            a0, be = cp.a0_dev, cp.be_dev
-        else:
-            a0 = self._to_dev(cp.alpha[targets])
-            be = self._to_dev(cp.beta[targets])
+        bsb = np.broadcast_to(np.asarray(bsb, dtype=np.int64), targets.shape)
+        bse = np.broadcast_to(np.asarray(bse, dtype=np.int64), targets.shape)
+        on_dev = (cp.a0_dev is not None and cp.be_dev is not None and all_t)
+
+        def slabs(lo, hi, device):
+            """Rows lo:hi of the checkpoint's slabs of ``targets`` on
+            ``device``."""
+            if on_dev:
+                return (cp.a0_dev[lo:hi].to(device),
+                        cp.be_dev[lo:hi].to(device))
+            rows = targets[lo:hi]
+            return (self._to_dev(cp.alpha[rows], device),
+                    self._to_dev(cp.beta[rows], device))
+
+        if self.mesh is None:
+            return self._repaint(targets, *slabs(0, len(targets),
+                                                 self.device),
+                                 bsb, bse, base)
+        parts = blocks(len(targets), len(self.mesh))
+
+        def run(k, device):
+            lo, hi = parts[k]
+            return self.shards[k]._repaint(
+                targets[lo:hi], *slabs(lo, hi, device), bsb[lo:hi],
+                bse[lo:hi], base[lo:hi])
+        return self._join(per_card(self.mesh, run, len(parts)), targets,
+                          base)
+
+    def _repaint(self, targets, a0, be, bsb, bse, base) -> PaintOutput:
+        """The sweeps of one repaint on this Painter's device, from the
+        slabs ``a0``/``be`` (B, N) of ``targets``."""
         prep = self._prep(targets, bsb, bse)
         theta = float(self.model.theta)
         alphas, lsf = paint_kernels.fwd(prep["D"], a0, prep["kmask"],
@@ -567,3 +667,39 @@ class Painter:
                           kmask=prep["kmask"])
         return PaintOutput(topology=topo, logscale=lstot,
                            ls_base=np.asarray(base, np.float64), plan=plan)
+
+    def _join(self, outs, targets, base) -> PaintOutput:
+        """The cards' PaintOutputs joined along the target axis on the first
+        device. Rows past a target's steps are zero in the posterior and
+        its logscale; in the plan they repeat the last site and allele and
+        carry no transition, as in a one-card plan of the longest target."""
+        Dmax = max(o.topology.shape[0] for o in outs)
+
+        def steps(t, fill_last):
+            """(B, d) plan tensor padded to Dmax columns."""
+            pad = Dmax - t.shape[1]
+            if not pad:
+                return t
+            tail = (t[:, -1:].expand(-1, pad) if fill_last
+                    else t.new_zeros((t.shape[0], pad)))
+            return torch.cat([t, tail], dim=1)
+
+        def rows(t):
+            """(d, B, ...) output padded with zero rows to Dmax."""
+            pad = Dmax - t.shape[0]
+            return t if not pad else torch.cat(
+                [t, t.new_zeros((pad,) + tuple(t.shape[1:]))], dim=0)
+
+        dev = self.device
+        plan = TargetPlan(
+            targets=targets,
+            idx=gather([steps(o.plan.idx, True) for o in outs], dev),
+            seqk=gather([steps(o.plan.seqk, True) for o in outs], dev),
+            pfac=gather([steps(o.plan.pfac, False) for o in outs], dev),
+            nxt=gather([steps(o.plan.nxt, False) for o in outs], dev),
+            D=np.concatenate([o.plan.D for o in outs]),
+            kmask=gather([o.plan.kmask for o in outs], dev))
+        return PaintOutput(
+            topology=gather([rows(o.topology) for o in outs], dev, dim=1),
+            logscale=gather([rows(o.logscale) for o in outs], dev, dim=1),
+            ls_base=np.asarray(base, np.float64), plan=plan)

@@ -44,6 +44,10 @@ _LOCAL_INCLUDE = re.compile(rb'^#include "([^"]+)"', re.MULTILINE)
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
+# launches of each wrapper's kernel by card: {name: {"cuda:k": count}}
+launches_by_card: Dict[str, Dict[str, int]] = {}
+_COUNT_LOCK = threading.Lock()
+
 
 def find_nvcc() -> str:
     cands = [shutil.which("nvcc"),
@@ -130,6 +134,26 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(out)
         _LIBS[name] = lib
     return lib
+
+
+def count_launch(launches: Dict[str, int], name: str, device) -> None:
+    """Add one to ``launches[name]`` and to the count of ``name`` on
+    ``device`` in ``launches_by_card``. A kernel wrapper calls this where it
+    launches its kernel, from whichever thread drives the card."""
+    with _COUNT_LOCK:
+        launches[name] += 1
+        per = launches_by_card.setdefault(name, {})
+        per[str(device)] = per.get(str(device), 0) + 1
+
+
+def reset_launches(*counters: Dict[str, int]) -> None:
+    """Set ``counters`` (the wrappers' ``launches``) and
+    ``launches_by_card`` to 0."""
+    with _COUNT_LOCK:
+        for c in counters:
+            for k in c:
+                c[k] = 0
+        launches_by_card.clear()
 
 
 def check(err: int, what: str) -> None:

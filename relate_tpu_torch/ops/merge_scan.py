@@ -254,7 +254,7 @@ def _launch(d, dcf, use_cf, threshold, threshold_cf, seed, large: bool):
                            for t in state + outs),
                          N, 1 if use_cf else 0, float(threshold),
                          float(threshold_cf), int(seed), st)
-    launches[name] += 1
+    _build.count_launch(launches, name, dev)
     _build.check(err, name)
     return tuple(outs[3:])
 

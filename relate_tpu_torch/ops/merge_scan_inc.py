@@ -281,7 +281,7 @@ def _launch(d, dcf, use_cf, threshold, threshold_cf, seed):
                  N, 1 if use_cf else 0, float(threshold),
                  float(threshold_cf), int(seed), st)
     _build.check(err, "merge_scan_inc")
-    launches["merge_scan_inc"] += 1
+    _build.count_launch(launches, "merge_scan_inc", dev)
     return cis, cjs, istate[at.value:at.value + 4]
 
 

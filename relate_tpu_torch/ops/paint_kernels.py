@@ -35,7 +35,8 @@ rows with streaming stores, so a row's bytes are in flight while the
 chain computes the one before (``csrc/paint_bwd.cu``).
 
 A CUDA tensor goes to the kernel or raises; only a CPU tensor takes the
-plain version. ``launches`` counts kernel launches per wrapper.
+plain version. ``launches`` counts kernel launches per wrapper
+(``_build.launches_by_card`` the same by card).
 """
 from __future__ import annotations
 
@@ -344,7 +345,7 @@ def fwd(D, alpha0, kmask, mism, pfac, nxt, *, theta):
         err = _fwd_fn()(_ptr(D), _ptr(alpha0), _ptr(kmask), _ptr(mism),
                         _ptr(pfac), _ptr(nxt), _ptr(alphas), _ptr(lss), Dmax,
                         B, N, tr, _stream(dev))
-    launches["fwd"] += 1
+    _build.count_launch(launches, "fwd", dev)
     _build.check(err, "paint_fwd")
     return alphas, lss
 
@@ -364,7 +365,7 @@ def fwd_capture(D, want, alpha0, kmask, mism, pfac, nxt, *, theta):
     lscap = torch.empty((B,), dtype=torch.float32, device=dev)
     err = _capture_launch(False, D, want, alpha0, kmask, mism, pfac, nxt,
                           acap, lscap, theta)
-    launches["fwd_capture"] += 1
+    _build.count_launch(launches, "fwd_capture", dev)
     _build.check(err, "paint_capture (forward)")
     return acap, lscap
 
@@ -404,7 +405,7 @@ def bwd(D, beta_end, kmask, mism, pfac, nxt, alphas, lsf, *, theta,
                         _ptr(out), _ptr(lsout), Dmax, B, N, th, nth, tr,
                         _MODE_BETA if emit_beta else _MODE_POST,
                         _stream(dev))
-    launches["bwd"] += 1
+    _build.count_launch(launches, "bwd", dev)
     _build.check(err, "paint_bwd")
     return out, lsout
 
@@ -425,6 +426,6 @@ def bwd_capture(D, want, beta_end, kmask, mism, pfac, nxt, *, theta):
     lscap = torch.empty((B,), dtype=torch.float32, device=dev)
     err = _capture_launch(True, D, want, beta_end, kmask, mism, pfac, nxt,
                           bcap, lscap, theta)
-    launches["bwd_capture"] += 1
+    _build.count_launch(launches, "bwd_capture", dev)
     _build.check(err, "paint_capture (backward)")
     return bcap, lscap

@@ -19,8 +19,12 @@ removes ``<out>.tmpdir``; ``--mode All --postprocess`` runs PostProcess
 inside ``run_all``.
 
 The stages run on the CUDA card; ``--device cpu`` asks for the host.
-``--sample_ages`` (All, MakeChunks) and ``--anc_allele_unknown``
-(BuildTopology) send BuildTopology to the host topology builder.
+``--devices N`` runs the modes All, Paint, BuildTopology and
+InferBranchLengths on the first N cards of the host
+(``parallel.mesh.default_mesh``; it raises if fewer are visible, and it
+does not go with ``--device``). ``--sample_ages`` (All, MakeChunks) and
+``--anc_allele_unknown`` (BuildTopology) send BuildTopology to the host
+topology builder.
 """
 from __future__ import annotations
 
@@ -32,11 +36,14 @@ import numpy as np
 
 from . import relate
 from ..io.chunking import ArtifactStore
+from ..parallel.mesh import default_mesh
 from ..utils.trace import stage
 
 MODES = ("All", "MakeChunks", "Paint", "BuildTopology",
          "FindEquivalentBranches", "InferBranchLengths", "CombineSections",
          "Finalize", "PostProcess", "OptimizeParameters", "Clean")
+# the modes that take --devices
+MESH_MODES = ("All", "Paint", "BuildTopology", "InferBranchLengths")
 
 
 def build_parser():
@@ -78,6 +85,13 @@ def build_parser():
     # host thread pool over chunks (RelateParallel.sh --threads): a chunk's
     # host-bound stages overlap with other chunks' device work
     p.add_argument("--threads", type=int, default=1)
+    # several cards of this host (RelateParallel.sh --threads over
+    # sections): Paint cuts the targets over the first N cards,
+    # BuildTopology gives them whole sections, InferBranchLengths runs on
+    # the first
+    p.add_argument("--devices", type=int, default=0,
+                   help="run on the first N CUDA cards (modes "
+                        + ", ".join(MESH_MODES) + "); 0: one device")
     p.add_argument("--device", default=None,
                    help="torch device; default: the CUDA card (an error if "
                         "there is none). 'cpu' runs the plain versions.")
@@ -105,6 +119,15 @@ def main(argv=None):
     rho_scale = 1.0
     if args.painting:
         theta, rho_scale = args.painting
+    mesh = None
+    if args.devices:
+        if args.device is not None:
+            raise SystemExit("--devices N runs on the first N cards; it "
+                             "does not go with --device")
+        if mode not in MESH_MODES:
+            raise SystemExit(f"--devices applies to the modes "
+                             f"{', '.join(MESH_MODES)}, not {mode}")
+        mesh = default_mesh(args.devices)
 
     if mode == "All":
         relate.run_all(args.haps, args.sample, args.map_path, out,
@@ -115,7 +138,7 @@ def main(argv=None):
                        sample_ages_path=args.sample_ages, coal=coal,
                        rho_scale=rho_scale, postprocess=args.postprocess,
                        annot_path=args.annot, threads=args.threads,
-                       device=args.device)
+                       device=args.device, mesh=mesh)
         return 0
 
     with stage(mode):
@@ -128,7 +151,7 @@ def main(argv=None):
                                args.sample_ages, device=args.device)
         elif mode == "Paint":
             relate.paint(store, args.chunk_index, theta, rho_scale=rho_scale,
-                         device=args.device)
+                         device=args.device, mesh=mesh)
         elif mode == "BuildTopology":
             relate.build_topology(store, args.chunk_index, seed=args.seed,
                                   theta=theta, rho_scale=rho_scale,
@@ -137,7 +160,7 @@ def main(argv=None):
                                   fb=args.fb,
                                   first_section=args.first_section,
                                   last_section=args.last_section,
-                                  device=args.device)
+                                  device=args.device, mesh=mesh)
         elif mode == "FindEquivalentBranches":
             relate.find_equivalent_branches(store, args.chunk_index,
                                             device=args.device)
@@ -157,7 +180,7 @@ def main(argv=None):
                                         epochs=epochs, rates=rates,
                                         first_section=args.first_section,
                                         last_section=args.last_section,
-                                        device=args.device)
+                                        device=args.device, mesh=mesh)
         elif mode == "CombineSections":
             relate.combine_sections(store, args.chunk_index)
         elif mode == "OptimizeParameters":

@@ -15,8 +15,17 @@ the kernels. No environment variable picks a code path: what the JAX package
 reads from the environment is a function argument here, with its default.
 
 PostProcess (``post_process_chunk``, ``run_all(postprocess=True)``) and
-OptimizeParameters (``optimize_parameters``) run here too. Not ported: the
-device mesh and the multi-host barrier of ``run_all``.
+OptimizeParameters (``optimize_parameters``) run here too.
+
+Several cards of one host (``mesh=``, a ``parallel.mesh.Mesh``): Paint cuts
+the targets over the cards (``Painter(mesh=)``); BuildTopology gives whole
+sections to the cards, ``windows[k::D]`` to card k, each card driven by a
+host thread of its own with its own replica of the panel. A section keeps
+its own seed wherever it runs, so the artifacts are those of one card byte
+for byte. FindEquivalentBranches, InferBranchLengths, CombineSections,
+Finalize and PostProcess run on the first card. Not ported yet:
+InferBranchLengths on several cards and ``run_all``'s several hosts (the
+plan wait, the ``DONE`` barrier and host 0's Finalize; ROADMAP item 4b).
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ from ..core.trees import AncesTree, MarginalTree
 from ..io import ancmut, chunking
 from ..io import haps as hio
 from ..io.chunking import ArtifactStore, MERGE_DISCARD
+from ..parallel.mesh import device_and_mesh, per_card
 from ..utils.devmem import resolve_device
 from ..utils.trace import stage, summary
 from .postprocess import post_process
@@ -71,18 +81,20 @@ def make_chunks(haps_path: str, sample_path: str, map_path: str, outdir: str,
 
 
 def paint(store: ArtifactStore, c: int, theta: float = 0.001,
-          rho_scale: float = 1.0, cache: Optional[dict] = None, device=None):
+          rho_scale: float = 1.0, cache: Optional[dict] = None, device=None,
+          mesh=None):
     """Compute and persist stepping-stone checkpoints for all windows of a
     chunk (pipeline/Paint.cpp equivalent; npz instead of RLE .bin).
 
     With a ``cache``, the in-memory checkpoints (device slabs where
     retained) are handed to build_topology so sections skip both the npz
-    reload and the host-to-device upload."""
-    device = resolve_device(device)
+    reload and the host-to-device upload. ``mesh``: the targets are cut
+    over its cards; the slabs are joined on its first card."""
+    device, mesh = device_and_mesh(device, mesh)
     ch = store.load_chunk(c)
     r = ch.r * rho_scale
     model = painting.PaintingModel(N=ch.N, theta=theta)
-    painter = painting.Painter(ch.G, r, model, device=device)
+    painter = painting.Painter(ch.G, r, model, device=device, mesh=mesh)
     cps = painter.paint_stepping_stones(np.asarray(ch.windows.boundaries))
     os.makedirs(store.path(f"chunk_{c}"), exist_ok=True)
     for w, cp in enumerate(cps):
@@ -112,7 +124,7 @@ def build_topology(store: ArtifactStore, c: int, seed: int = 1,
                    first_section: int = 0,
                    last_section: Optional[int] = None,
                    cache: Optional[dict] = None, device=None,
-                   merge_seeds: Optional[dict] = None):
+                   merge_seeds: Optional[dict] = None, mesh=None):
     """Build per-section tree sequences (pipeline/BuildTopology.cpp) and
     write ``trees_<w>.anc`` + ``muts_<w>.mut``.
 
@@ -121,8 +133,11 @@ def build_topology(store: ArtifactStore, c: int, seed: int = 1,
     or sample ages in the store go to the host builder
     (``core/topology.py``), which rebuilds on ``device`` too.
     ``merge_seeds`` optionally maps a section index to the (S+1,) int32
-    tie-break seeds of the device builder's merge scans."""
-    device = resolve_device(device)
+    tie-break seeds of the device builder's merge scans. With a ``mesh``
+    the device builder gives whole sections to its cards
+    (``_build_topology_sections_on_cards``); the host builder stays on the
+    first card."""
+    device, mesh = device_and_mesh(device, mesh)
     ch = store.load_chunk(c)
     model = painting.PaintingModel(N=ch.N, theta=theta)
     bounds = ch.windows.boundaries
@@ -133,6 +148,10 @@ def build_topology(store: ArtifactStore, c: int, seed: int = 1,
     ages = store.load_sample_ages(ch.N)
     use_device = ancestral_state and ages is None
     sec_seeds = section_seeds(seed, c, W)
+    if mesh is not None and use_device:
+        return _build_topology_sections_on_cards(
+            store, c, ch, model, bounds, W, first_section, last_section,
+            sec_seeds, mesh, rho_scale, mode, fb, ages, cache, merge_seeds)
     painter = painting.Painter(ch.G, ch.r * rho_scale, model, device=device)
 
     # overlap the host-bound ends of each section (checkpoint npz load,
@@ -192,6 +211,61 @@ def build_topology(store: ArtifactStore, c: int, seed: int = 1,
             write_futs.append(pool.submit(_persist, w, res))
         for f in write_futs:
             f.result()
+
+
+def _build_topology_sections_on_cards(store, c, ch, model, bounds, W,
+                                      first_section, last_section, sec_seeds,
+                                      mesh, rho_scale, mode, fb, ages, cache,
+                                      merge_seeds):
+    """BuildTopology with whole sections on the cards of ``mesh``: card k
+    builds sections ``windows[k::D]`` one after the other, on a host thread
+    of its own, with its own replica of the panel, and writes them. A
+    section's checkpoint slabs are moved to its card first. Same section
+    seeds as one card, so the same artifacts."""
+    windows = list(range(first_section, last_section + 1))
+    D = len(mesh)
+    cps_mem = cache.pop(("cps", c), None) if cache is not None else None
+    painter = painting.Painter(ch.G, ch.r * rho_scale, model, mesh=mesh)
+
+    def cp_for(w, dev):
+        if cps_mem is None:
+            return load_checkpoint(store, c, w)
+        cp = cps_mem[w]
+        if cp.a0_dev is None:
+            return cp
+        moved = painting.Checkpoint(
+            alpha=cp._alpha, beta=cp._beta, ls_alpha=cp.ls_alpha,
+            ls_beta=cp.ls_beta, bsb=cp.bsb, bse=cp.bse,
+            a0_dev=cp.a0_dev.to(dev), be_dev=cp.be_dev.to(dev))
+        # free the first card's slabs now (paint()'s npz write made the
+        # host copies): holding every window's through the stage pins 2 x
+        # (N, N) f32 a window there
+        cp.alpha, cp.beta  # noqa: B018 - force host materialisation
+        cp.a0_dev = None
+        cp.be_dev = None
+        return moved
+
+    def run(k, dev):
+        for w in windows[k::D]:
+            start = bounds[w]
+            end = min((bounds[w + 1] - 1) if w < W - 1 else ch.L - 1,
+                      ch.L - 1)
+            res = topology_device.build_topology_section_device(
+                painter.shards[k], cp_for(w, dev), ch.G, ch.rpos, ch.state,
+                ch.bp, start, end, seed=int(sec_seeds[w]), mode=mode, fb=fb,
+                merge_seeds=None if merge_seeds is None
+                else merge_seeds.get(w))
+            res.anc.sample_ages = ages
+            ancmut.write_anc_bin(store.path(f"chunk_{c}", f"trees_{w}.anc"),
+                                 res.anc)
+            ancmut.get_age(res.anc, res.muts)
+            ancmut.write_mut_short(store.path(f"chunk_{c}", f"muts_{w}.mut"),
+                                   res.muts)
+            if cache is not None:
+                cache[("anc", c, w)] = res.anc
+                cache[("muts", c, w)] = res.muts
+
+    per_card(mesh, run, min(D, len(windows)))
 
 
 def _read_section(store: ArtifactStore, c: int, w: int,
@@ -290,14 +364,19 @@ def infer_branch_lengths(store: ArtifactStore, c: int, Ne: float = 3e4,
                          rates: Optional[np.ndarray] = None,
                          first_section: int = 0,
                          last_section: Optional[int] = None,
-                         cache: Optional[dict] = None, device=None):
+                         cache: Optional[dict] = None, device=None,
+                         mesh=None):
     """Branch-length MCMC per section (pipeline/InferBranchLengths.cpp);
-    the trees of a section are one batch of chains on ``device``.
+    the trees of a section are one batch of chains on ``device``. With a
+    ``mesh`` the stage runs on its first card: the stage is bound by the
+    host's launches, and whole sections on the cards, a host thread each,
+    took 4.8 to 5.5 times one card's time on four H100s (PERF.md; ROADMAP
+    item 4b).
 
     With a coalescence-rate prior, epochs (generations) and rates
     (per-generation) are normalized by the implied average Ne = 1/mean(rate)
     into coalescent units (InferBranchLengths.cpp:86-152)."""
-    device = resolve_device(device)
+    device, _ = device_and_mesh(device, mesh)
     ch = store.load_chunk(c)
     W = ch.windows.num_windows
     if last_section is None:
@@ -522,9 +601,18 @@ def run_all(haps_path: str, sample_path: str, map_path: str, output: str,
             verbose: bool = True, rho_scale: float = 1.0,
             postprocess: bool = False, annot_path: Optional[str] = None,
             threads: int = 1, stream_windows: int = STREAM_WINDOWS,
-            cp_handoff_bytes: float = CP_HANDOFF_BYTES, device=None):
+            cp_handoff_bytes: float = CP_HANDOFF_BYTES, device=None,
+            mesh=None):
     """Relate --mode All (pipeline/Relate.cpp:257-287) on ``device`` (None:
-    the CUDA card).
+    the CUDA card), or on the cards of ``mesh`` (``parallel.mesh.Mesh``,
+    e.g. ``default_mesh(4)``): Paint cuts the targets over them,
+    BuildTopology gives them whole sections, and the other stages run on
+    the first card. The ``.anc``/``.mut`` are those of ``device=mesh[0]``
+    byte for byte, also with ``threads``. Each stage record gives the peak
+    memory of every card of the mesh (``dev_peak_mb_by_card``); with
+    ``threads`` > 1 the chunks' stages overlap and share the cards' peak
+    counters (each stage resets them), so a record's peaks are not its
+    stage's alone.
 
     ``sample_ages_path`` names a file of the haplotypes' ages in
     generations (ancient samples), which BuildTopology (through the host
@@ -541,7 +629,7 @@ def run_all(haps_path: str, sample_path: str, map_path: str, output: str,
     ``postprocess`` inserts PostProcess and a second FindEquivalentBranches
     after the first (Relate.cpp:276-279; stages ``chunk<c>.post_process``
     and ``chunk<c>.find_equivalent_branches.post``)."""
-    device = resolve_device(device)
+    device, mesh = device_and_mesh(device, mesh)
     store = ArtifactStore(output + ".tmpdir")
     plan = make_chunks(haps_path, sample_path, map_path, store.outdir,
                        memory_gb, dist_path, use_transitions,
@@ -575,16 +663,16 @@ def run_all(haps_path: str, sample_path: str, map_path: str, output: str,
         paint_cache = cache
         if cache is None and 2 * 4 * plan.N * plan.N * W_c <= cp_handoff_bytes:
             paint_cache = {}
-        with stage(f"chunk{c}.paint", verbose):
+        with stage(f"chunk{c}.paint", verbose, mesh):
             paint(store, c, theta, rho_scale=rho_scale, cache=paint_cache,
-                  device=device)
-        with stage(f"chunk{c}.build_topology", verbose):
+                  device=device, mesh=mesh)
+        with stage(f"chunk{c}.build_topology", verbose, mesh):
             build_topology(store, c, seed=seed, theta=theta,
                            rho_scale=rho_scale, cache=paint_cache,
-                           device=device)
+                           device=device, mesh=mesh)
         if paint_cache is not None and cache is None:
             paint_cache.clear()
-        with stage(f"chunk{c}.find_equivalent_branches", verbose):
+        with stage(f"chunk{c}.find_equivalent_branches", verbose, mesh):
             find_equivalent_branches(store, c, cache=cache,
                                      stream_windows=stream_windows,
                                      device=device)
@@ -596,17 +684,18 @@ def run_all(haps_path: str, sample_path: str, map_path: str, output: str,
                 for k in [k for k in cache if k[0] in ("anc", "muts")
                           and k[1] == c]:
                     del cache[k]
-            with stage(f"chunk{c}.post_process", verbose):
+            with stage(f"chunk{c}.post_process", verbose, mesh):
                 post_process_chunk(store, c, seed=seed, device=device)
-            with stage(f"chunk{c}.find_equivalent_branches.post", verbose):
+            with stage(f"chunk{c}.find_equivalent_branches.post", verbose,
+                       mesh):
                 find_equivalent_branches(store, c, cache=cache,
                                          stream_windows=stream_windows,
                                          device=device)
-        with stage(f"chunk{c}.infer_branch_lengths", verbose):
+        with stage(f"chunk{c}.infer_branch_lengths", verbose, mesh):
             infer_branch_lengths(store, c, Ne=Ne, mu=mu, seed=seed,
                                  epochs=epochs, rates=rates, cache=cache,
-                                 device=device)
-        with stage(f"chunk{c}.combine_sections", verbose):
+                                 device=device, mesh=mesh)
+        with stage(f"chunk{c}.combine_sections", verbose, mesh):
             combine_sections(store, c, cache=cache)
 
     chunks = list(range(plan.num_chunks))
@@ -617,7 +706,7 @@ def run_all(haps_path: str, sample_path: str, map_path: str, output: str,
     else:
         for c in chunks:
             _process_chunk(c)
-    with stage("finalize", verbose):
+    with stage("finalize", verbose, mesh):
         nnm, nfl = finalize(store, output, cleanup=cleanup,
                             annot_path=annot_path, cache=fin_cache)
     if verbose:

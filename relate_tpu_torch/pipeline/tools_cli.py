@@ -45,8 +45,10 @@ and a ``.png`` when matplotlib imports), MutationsOnBranches (``.muts``)
 and BranchesBelowMutation (``.branches``).
 
 Extract, FileFormats and TreeView are host code. The other tools run on the
-CUDA card; ``--device cpu`` asks for the host. ``--devices`` (several
-cards) is not ported yet and exits with the ROADMAP item that names it.
+CUDA card; ``--device cpu`` asks for the host. ``--devices`` (the tools'
+reductions over several cards) is not ported yet and exits with the ROADMAP
+item that names it (4b); ``Relate --mode All --devices N`` is
+``pipeline/cli.py``'s.
 """
 from __future__ import annotations
 
@@ -606,8 +608,8 @@ def build_parser():
     p.add_argument("--remove_ids")
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--devices", type=int, default=0,
-                   help="several cards: not ported yet (ROADMAP section A, "
-                        "item 4)")
+                   help="several cards for the tools' reductions: not "
+                        "ported yet (ROADMAP section A, item 4b)")
     p.add_argument("--device", default=None,
                    help="torch device; default: the CUDA card (an error if "
                         "there is none). 'cpu' runs on the host.")
@@ -617,8 +619,10 @@ def build_parser():
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.devices:
-        raise SystemExit("--devices (several cards) is not ported yet: "
-                         "ROADMAP section A, item 4")
+        raise SystemExit("--devices (the tools' reductions over several "
+                         "cards: coalescence_stats, the EM, "
+                         "sample_branch_lengths) is not ported yet: ROADMAP "
+                         "section A, item 4b")
     from ..utils.trace import stage
     with stage(f"{args.tool}.{args.mode or 'default'}"):
         {"CoalescentRate": coalescent_rate, "MutationRate": mutation_rate,

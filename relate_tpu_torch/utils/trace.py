@@ -14,7 +14,9 @@ Usage::
 Structured records accumulate in ``STAGES`` so a caller can print a final
 per-stage summary table (and tests can assert on it). Code that runs inside a
 stage can add to its record with ``note`` (the MCMC's rounds to convergence,
-for one).
+for one), also from a worker thread that entered the stage's record with
+``within``. With ``devices`` (the cards of a mesh) a record gives the peak
+memory of each of them under ``dev_peak_mb_by_card``.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import resource
 import sys
 import threading
 import time
-from typing import List, Optional
+from typing import Iterable, List, Optional
 
 import torch
 
@@ -37,6 +39,29 @@ def note(key: str, item) -> None:
     stack = getattr(_OPEN, "stack", None)
     if stack:
         stack[-1].setdefault(key, []).append(item)
+
+
+def open_record() -> Optional[dict]:
+    """The record of the innermost stage open on this thread, or None."""
+    stack = getattr(_OPEN, "stack", None)
+    return stack[-1] if stack else None
+
+
+@contextlib.contextmanager
+def within(rec: Optional[dict]):
+    """Make ``rec`` (a stage record open on another thread, or None) the
+    innermost open record of this thread while the block runs, so that
+    ``note`` from a worker thread lands in the caller's stage."""
+    if rec is None:
+        yield
+        return
+    if not hasattr(_OPEN, "stack"):
+        _OPEN.stack = []
+    _OPEN.stack.append(rec)
+    try:
+        yield
+    finally:
+        _OPEN.stack.pop()
 
 
 def _rss_mb() -> float:
@@ -57,13 +82,26 @@ def _device_mem_bytes() -> Optional[int]:
     return None
 
 
+def _cards(devices) -> list:
+    if not (devices and torch.cuda.is_available()
+            and torch.cuda.is_initialized()):
+        return []
+    return [torch.device(d) for d in devices
+            if torch.device(d).type == "cuda"]
+
+
 @contextlib.contextmanager
-def stage(name: str, verbose: bool = True):
-    """Time a pipeline stage; record + optionally print its resource use."""
+def stage(name: str, verbose: bool = True,
+          devices: Optional[Iterable] = None):
+    """Time a pipeline stage; record + optionally print its resource use.
+    ``devices``: the mesh whose cards' peak memory the record gives."""
     t0 = time.time()
     c0 = _cpu_s()
+    cards = _cards(devices)
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.reset_peak_memory_stats()
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
     rec = {"stage": name}
     if not hasattr(_OPEN, "stack"):
         _OPEN.stack = []
@@ -74,6 +112,9 @@ def stage(name: str, verbose: bool = True):
         _OPEN.stack.pop()
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
+    cards = cards or _cards(devices)    # CUDA may have started in the stage
+    for d in cards:
+        torch.cuda.synchronize(d)
     rec.update(
         wall_s=round(time.time() - t0, 3),
         cpu_s=round(_cpu_s() - c0, 3),
@@ -81,6 +122,10 @@ def stage(name: str, verbose: bool = True):
     dev = _device_mem_bytes()
     if dev is not None:
         rec["dev_peak_mb"] = round(dev / 1e6, 1)
+    if cards:
+        rec["dev_peak_mb_by_card"] = {
+            str(d): round(torch.cuda.max_memory_allocated(d) / 1e6, 1)
+            for d in cards}
     STAGES.append(rec)
     if verbose:
         msg = (f"[trace] {name}: wall {rec['wall_s']}s "

@@ -45,7 +45,7 @@ def test_every_module_imports_without_jax():
                 "pipeline.tools_cli", "io.extract", "evaluate.selection",
                 "evaluate.mutrate", "io.kastore", "io.fileformats",
                 "io.importers", "io.treeview", "io.native", "io.refpaint",
-                "core.tree_comparer"):
+                "core.tree_comparer", "parallel.mesh"):
         assert "relate_tpu_torch." + new in names
     code = (
         "import importlib, sys\n"

@@ -627,3 +627,52 @@ def test_cli_all_and_stage_modes(stores, tmp_path, monkeypatch):
     for ext in (".anc", ".mut"):
         assert filecmp.cmp(out_all + ext, out_st + ext, shallow=False), ext
     assert not os.path.exists(out_all + ".tmpdir") and os.path.isdir(store)
+
+
+def test_cli_devices_on_a_cpu_mesh(stores, tmp_path, monkeypatch):
+    """``--devices N`` for All, Paint, BuildTopology and InferBranchLengths,
+    with the first N cards stood in for by N host shards: the files of
+    ``--device cpu``. ``--devices`` does not go with ``--device`` nor with
+    another mode, and without the stand-in it raises on a host with fewer
+    cards (one, mocked)."""
+    from relate_tpu_torch.parallel import mesh as tmesh
+    prefix, tmp = stores["prefix"], stores["tmp"]
+    inputs = ["--haps", prefix + ".haps", "--sample", prefix + ".sample",
+              "--map", str(tmp / "map.txt"), "--memory", str(MEMORY_GB)]
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(RuntimeError, match="2-card mesh"):
+            tcli.main(["--mode", "All", "-o", str(tmp_path / "x"),
+                       "--devices", "2"] + inputs)
+    with pytest.raises(SystemExit, match="--device"):
+        tcli.main(["--mode", "All", "-o", str(tmp_path / "x"), "--devices",
+                   "2", "--device", "cpu"] + inputs)
+    with pytest.raises(SystemExit, match="not FindEquivalentBranches"):
+        tcli.main(["--mode", "FindEquivalentBranches", "-o",
+                   str(tmp_path / "x"), "--devices", "2"])
+    assert not os.path.exists(str(tmp_path / "x.tmpdir"))
+    made = []
+    monkeypatch.setattr(tcli, "default_mesh", lambda n: made.append(n) or
+                        tmesh.Mesh(["cpu"] * n))
+    out_one = str(tmp_path / "one")
+    assert tcli.main(["--mode", "All", "-o", out_one, "--device", "cpu"]
+                     + inputs) == 0
+    out_mesh = str(tmp_path / "mesh")
+    assert tcli.main(["--mode", "All", "-o", out_mesh, "--devices", "2"]
+                     + inputs) == 0
+    store = str(tmp_path / "staged")
+    assert tcli.main(["--mode", "MakeChunks", "-o", store, "--device", "cpu"]
+                     + inputs) == 0
+    for mode, dev in (("Paint", ["--devices", "3"]),
+                      ("BuildTopology", ["--devices", "2"]),
+                      ("FindEquivalentBranches", ["--device", "cpu"]),
+                      ("InferBranchLengths", ["--devices", "3"]),
+                      ("CombineSections", [])):
+        assert tcli.main(["--mode", mode, "-o", store] + dev) == 0
+    out_st = str(tmp_path / "final")
+    assert tcli.main(["--mode", "Finalize", "-o", out_st, "--store",
+                      store]) == 0
+    assert made == [2, 3, 2, 3]
+    for ext in (".anc", ".mut"):
+        assert filecmp.cmp(out_one + ext, out_mesh + ext, shallow=False), ext
+        assert filecmp.cmp(out_one + ext, out_st + ext, shallow=False), ext
