@@ -10,35 +10,36 @@ CLI and checks what they wrote:
 
 - ``run_all`` (``Relate --mode All``: MakeChunks -> Paint -> BuildTopology
   -> FindEquivalentBranches -> InferBranchLengths -> CombineSections ->
-  Finalize) at N = 4096 haplotypes and L = 4096 SNPs of a seeded synthetic
-  panel: above 2048 every tree is built by the incremental merge scan;
+  Finalize) at N = 4096 haplotypes and L = 2048 SNPs of a seeded synthetic
+  panel (its first 2,048 of 4,096): above 2048 every tree is built by the incremental merge scan;
 - ``run_all`` at N = 2048 and L = 8192: the width at which the merge scan
   takes its large dense kernel;
 - MakeChunks -> Paint -> BuildTopology at N = 1024 and L = 8192, the width
   of the merge-scan kernel that also emits the clade rows;
-- ``run_all`` at N = 1024 and L = 8192 with sample ages (128 ancient
+- ``run_all`` at N = 1024 and L = 2048 with sample ages (128 ancient
   haplotypes, 200 to 4,000 generations): the host topology builder, whose
   trees are all built by the age-aware scan (PyTorch ops), and the MCMC with
   ancient samples; the trees must hold the tips at their ages;
 - MakeChunks -> Paint -> BuildTopology ``--anc_allele_unknown`` at N = 1024
   through the stage modes of ``pipeline/cli.py``: the host topology builder
   with symmetrised distances and flip coins, every tree built by the merge
-  scan with clade rows;
-- ``run_all(postprocess=True)`` at N = 2048 and L = 8192: PostProcess (one
+  scan with clade rows (L = 4096);
+- ``run_all(postprocess=True)`` at N = 2048 and L = 4096: PostProcess (one
   product a tree for the clade counts, the node loop on the host, every SNP
   mapped again) and FindEquivalentBranches again before the branch
   lengths; every window's records must map their own SNPs;
 - OptimizeParameters at N = 1024 on a 2 x 2 grid of theta and rho over the
-  first 251 SNPs (the stepping stones, the repaint and one merge scan a
+  first 151 SNPs (the stepping stones, the repaint and one merge scan a
   SNP); the CLI's ``--mode OptimizeParameters --input`` runs at its
   default on the N = 64 store of ``cpu_vs_card``;
 - the CoalescentRate tool (``pipeline/tools_cli.py``) on the ``.anc``/
   ``.mut`` of ``run_all`` at N = 2048: EstimatePopulationSize with two
-  groups, EstimatePopulationSizeEM (3 iterations), SampleBranchLengths
-  (``.timeb``, 5 samples); and ReEstimateBranchLengths under the pairwise
-  group prior on the output of a ``run_all`` of its own at N = 512 and
-  L = 4096 (one proposal an iteration: at N = 2048 its chains take 430.8 s
-  even replayed as CUDA graphs);
+  groups and with ``--poplabels hap`` (a rate for each of the 2048 x 2048
+  haplotype pairs), EstimatePopulationSizeEM (2 iterations),
+  SampleBranchLengths (``.timeb``, 3 samples); and ReEstimateBranchLengths
+  under the pairwise group prior on the output of a ``run_all`` of its own
+  at N = 512 and L = 4096 (one proposal an iteration: at N = 2048 its
+  chains take 430.8 s even replayed as CUDA graphs);
 - the Selection, MutationRate and Extract tools on the same N = 2048
   output, with a fasta of random bases: Selection in its five modes and
   DetectSelection, MutationRate Avg, WithContext,
@@ -51,8 +52,18 @@ CLI and checks what they wrote:
   against one card (bit for bit), ``run_all(mesh=)`` at N = 2048 whose
   files must equal the one-card ``run_all``'s byte for byte, with each
   kernel's launches by card, ``run_mcmc(mesh=)`` on 9 trees,
-  ``coalescence_counts_psum`` and ``dryrun``;
-- the interchange path at N = 2048 and L = 8192: the panel as a phased VCF
+  ``coalescence_counts_psum`` and ``dryrun``; the CoalescentRate tool on the
+  ``run_all`` output at N = 2048 through ``--devices`` beside one card
+  (EstimatePopulationSize with two groups, EstimatePopulationSizeEM, one
+  iteration, SampleBranchLengths, 2 samples: the files equal byte for byte)
+  and ``coalescence_stats`` in batches of 8 trees; with more than one card
+  also ``reduce_sum`` beside ``torch.cuda.comm.reduce_add`` and the chains'
+  parts from one thread beside a thread a card;
+- ``--mode All`` on two hosts at N = 2048 and L = 4096: two processes of
+  the port's CLI (``--num_hosts 2 --host_id k``) on one store, with chunk
+  constants that plan the panel as two chunks, whose files must equal one
+  host's;
+- the interchange path at N = 2048 and L = 4096: the panel as a phased VCF
   whose REF is the derived allele at a tenth of the SNPs -> FileFormats
   ConvertFromVcf -> ``scripts.prepare_input_files`` with an ancestor fasta
   (which flips those SNPs back and drops 2 %), a mask (5 % N) and two
@@ -83,9 +94,13 @@ the card against the CPU), ``mesh`` (the cards, the Painter's and each
 stage's time with the mesh beside one card's, the launches by card, each
 card's peak memory; ``--phases mesh`` runs the one-card ``run_all`` it
 compares with, and on a host with four cards uses all four),
+``dealing`` (not run by default; more than one card: the one-card
+``run_all`` and then only the mesh phase's ``mesh_dealing``),
 ``interchange`` (each step's wall seconds, the
 flipped, dropped and masked SNPs, the launches of ``--mode All``),
-``run_all_n4096``, ``run_all_ancient`` (with the age-aware scan's ms a
+``hosts`` (each process's chunks, launches by kernel and seconds, the
+one-host and the two-host wall seconds), ``run_all_n4096``,
+``run_all_ancient`` (with the age-aware scan's ms a
 build and the kernels it launches), ``anc_unknown``,
 ``run_all_postprocess`` (with PostProcess's ms a tree for the product, the
 node loop and the remapping), ``optimize``, ``cpu_vs_card`` (N = 64, with
@@ -166,14 +181,30 @@ FP32_FLOPS = 67e12             # H100 SXM, float32 outside the tensor cores
 L2_BYTES = 50e6                # H100 SXM: what is re-read from below this stays on chip
 TIME_BUDGET_S = 560.0          # further sections are built while under this
 SMALLER_MEMORY_GB = 1.25       # gives the N = 1024 panel 3 windows (about 2,900 SNPs)
-OPT_MAX_SNPS = 250             # OptimizeParameters: SNPs 0 ... 250 of section 0
-EM_ITERS = 3                   # EstimatePopulationSizeEM (its default is 10)
-SBL_SAMPLES = 5                # SampleBranchLengths --num_samples
+OPT_MAX_SNPS = 150             # OptimizeParameters: SNPs 0 ... 150 of section 0
+EM_ITERS = 2                   # EstimatePopulationSizeEM (its default is 10)
+SBL_SAMPLES = 3                # SampleBranchLengths --num_samples
 N_PAIR = 512                   # ReEstimateBranchLengths under the pair
 L_SNPS_PAIR = 4096             # prior: a run_all of its own (at N = 2048
 PAIR_MEMORY_GB = 0.25          # its chains take minutes; PERF.md), 3 windows
 HAP_ROWS_CHECKED = 64          # rows of the --poplabels hap .pairwise.coal read back
 CHROMOSOME_SNPS = 50_000       # log_pvalue_batch alone: the tails of this many SNPs
+MESH_EM_ITERS = 1              # the mesh phase's EstimatePopulationSizeEM
+MESH_SBL_SAMPLES = 2           # and SampleBranchLengths --num_samples
+MESH_STATS_BATCH = 8           # coalescence_stats in batches of this many trees
+PARTS_PROPOSALS = 10_000       # sample_branch_lengths in parts: proposals a sample
+L_SNPS_HOSTS = 4096            # the hosts phase: the first SNPs of the N = 2048
+HOSTS_MEMORY_GB = 2.0          # panel, which with these chunk constants plans
+HOSTS_CHUNKING = dict(OVERLAP=500, MERGE_DISCARD=250,    # as 2 chunks
+                      MAX_WINDOWS_PER_CHUNK=4)
+HOSTS_TIMEOUT_S = 600.0        # a host process's limit and barrier timeout
+L_SNPS_ANCIENT = 2048          # run_all_ancient: the first SNPs of the N = 1024
+ANCIENT_MEMORY_GB = 0.5        # panel, in 2 windows
+L_SNPS_ANC_UNKNOWN = 4096      # anc_unknown: the first SNPs of the N = 1024
+ANC_UNKNOWN_MEMORY_GB = 0.6    # panel, in 3 windows
+L_SNPS_RUN_ALL_INC = 2048      # run_all_n4096: the first SNPs of its panel
+L_SNPS_POSTPROCESS = 4096      # run_all_postprocess and interchange: the first
+L_SNPS_INTERCHANGE = 4096      # SNPs of the N = 2048 panel
 DEV = "cuda"                   # the port's entry points get this device
 
 T_START = time.time()
@@ -1503,8 +1534,12 @@ def phase_mesh(G_hap, bp_hap, mem_hap, G, bp, memory_gb, one_card,
     res = dict(mesh=cards, cards=len(mesh),
                card_names=[torch.cuda.get_device_name(d) for d in mesh])
     try:
+        if len(mesh) > 1:
+            # before any other sum across cards of this process
+            res["reduce_sum"] = reduce_first_and_later(mesh)
         mesh_steps(res, mesh, pm, G_hap, bp_hap, mem_hap, G, bp, memory_gb,
                    one_card, handed, kernels)
+        res["tools"] = mesh_tools(mesh, handed)
     finally:
         # what was measured before a failure is printed too
         emit("mesh", **res, seconds=round(time.time() - t_phase, 1))
@@ -1519,6 +1554,11 @@ def phase_mesh(G_hap, bp_hap, mem_hap, G, bp, memory_gb, one_card,
              f"{res['run_mcmc']['max_abs_diff']}")
     if not res["coalescence_counts_psum"]["equal_to_host"]:
         fail("mesh: coalescence_counts_psum differs from the host count")
+    unequal = {m: r["files_equal"] for m, r in res["tools"].items()
+               if "files_equal" in r and not all(r["files_equal"].values())}
+    if unequal:
+        fail(f"mesh: the tools wrote other files on the mesh than on one "
+             f"card: {unequal}")
 
 
 def mesh_painter(res, mesh, G_hap, bp_hap, mem_hap):
@@ -1858,6 +1898,415 @@ def chains_worker(job, k):
     with open(f"{job}.out{k}", "wb") as f:
         pickle.dump(dict(lengths=lengths, t0=t0, t1=t1, warm_s=warm_s,
                          cpu_s=round(time.thread_time() - c0, 3)), f)
+
+
+def synced(mesh):
+    """The host clock once every card of ``mesh`` has finished."""
+    for d in mesh:
+        torch.cuda.synchronize(d)
+    return time.time()
+
+
+def reduce_first_and_later(mesh, reps=10):
+    """The sum of one (E, 2G, G) float64 tensor a card onto the first card
+    (the shape of ``coalescence_stats``' partial sums; E = 31, G = 2 and
+    G = 256) two ways: ``parallel.mesh.reduce_sum`` (peer copies added in
+    mesh order) and ``torch.cuda.comm.reduce_add``. The first call of each
+    (``reduce_sum`` first, before any other sum across cards of this
+    process) and the median of ``reps`` later calls, in ms; each result
+    must equal the sum taken on the host."""
+    from torch.cuda import comm
+
+    from relate_tpu_torch.parallel import mesh as pm
+    out = {}
+    for G in (2, 256):
+        parts = [torch.full((31, 2 * G, G), float(k + 1), dtype=torch.float64,
+                            device=d) for k, d in enumerate(mesh)]
+        want = float(len(mesh) * (len(mesh) + 1) // 2)
+
+        def ms(fn):
+            t0 = synced(mesh)
+            r = fn()
+            t = synced(mesh) - t0
+            if r.device != mesh.first or not bool((r == want).all()):
+                fail(f"mesh: a sum across the cards is not {want} on "
+                     f"{mesh.first}")
+            return t * 1e3
+        ways = {"reduce_sum": lambda: pm.reduce_sum(parts, mesh),
+                "reduce_add": lambda: comm.reduce_add(
+                    parts, destination=mesh.first.index)}
+        rec = {w: dict(first_ms=round(ms(f), 3)) for w, f in ways.items()}
+        for w, f in ways.items():
+            rec[w]["later_ms"] = round(float(np.median(
+                [ms(f) for _ in range(reps)])), 4)
+        out[f"G={G}"] = rec
+    return out
+
+
+def mesh_tools(mesh, prefix):
+    """The CoalescentRate tool through its CLI on ``prefix`` (``run_all``'s
+    N = 2048 output), each mode once on one card (``--device``) and once
+    with ``--devices D``, which runs on the first card: EstimatePopulation-
+    Size with two groups, EstimatePopulationSizeEM (``MESH_EM_ITERS``
+    iteration, two groups) and SampleBranchLengths (``.timeb``,
+    ``MESH_SBL_SAMPLES`` samples, under a one-card ``.coal`` of the same
+    trees). Their files must be equal byte for byte; each run's wall
+    seconds and the card of every ``coalescence_stats`` call and chain
+    part. With more than one card, the two designs that would give the
+    cards work from this process, each beside one card on the same inputs:
+    ``coal_stats_dealt`` and ``sample_parts``."""
+    from relate_tpu_torch.evaluate import coalrate
+    from relate_tpu_torch.pipeline import scripts, tools_cli
+    from relate_tpu_torch.utils.trace import STAGES
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="relate_smoke_mesh_tools_") as tmp:
+        o = lambda name: os.path.join(tmp, name)  # noqa: E731
+        anc, recs, bp, dist = scripts._load_pair(prefix)[:4]
+        N = anc.N
+        pl = o("two.poplabels")
+        write_poplabels(pl, N)
+        if tools_cli.main(["CoalescentRate", "--mode",
+                           "EstimatePopulationSize", "-i", prefix, "-o",
+                           o("prior"), "--device", DEV]) != 0:
+            fail("mesh: EstimatePopulationSize for the prior failed")
+        for name, mode, args, files in (
+                ("eps", "EstimatePopulationSize", ["--poplabels", pl],
+                 (".coal", ".pairwise.coal")),
+                ("em", "EstimatePopulationSizeEM",
+                 ["--poplabels", pl, "--num_iter", str(MESH_EM_ITERS)],
+                 (".coal", ".pairwise.coal", ".anc", ".mut")),
+                ("sbl", "SampleBranchLengths",
+                 ["--coal", o("prior.coal"), "--format", "timeb",
+                  "--num_samples", str(MESH_SBL_SAMPLES)], (".timeb",))):
+            rec = dict(mode=mode)
+            for where, dev in (("card", ["--device", DEV]),
+                               ("mesh", ["--devices", str(len(mesh))])):
+                del STAGES[:]
+                t0 = synced(mesh)
+                rc = tools_cli.main(["CoalescentRate", "--mode", mode, "-i",
+                                     prefix, "-o", o(f"{where}_{name}"),
+                                     *args, *dev])
+                wall = synced(mesh) - t0
+                if rc != 0:
+                    fail(f"mesh: {mode} on the {where} returned {rc}")
+                rec[where] = dict(
+                    wall_s=round(wall, 3),
+                    coal_stats_on=[m["device"] for r in STAGES
+                                   for m in r.get("coal_stats", [])],
+                    chain_parts_on=[m["device"] for r in STAGES
+                                    for m in r.get("mcmc", [])
+                                    if "device" in m])
+            rec["files_equal"] = {f: same_bytes(o(f"card_{name}{f}"),
+                                                o(f"mesh_{name}{f}"))
+                                  for f in files}
+            out[name] = rec
+        if len(mesh) > 1:
+            out.update(mesh_dealing(mesh, prefix, o("prior.coal")))
+    return out
+
+
+def mesh_dealing(mesh, prefix, prior):
+    """The two designs that would give the cards of ``mesh`` the tools'
+    work from this process, each beside one card on the same inputs (the
+    trees of ``prefix``, the rates of the ``.coal`` file ``prior``):
+    ``coal_stats_dealt`` and ``sample_parts``."""
+    from relate_tpu_torch.evaluate import coalrate
+    from relate_tpu_torch.pipeline import scripts
+
+    anc, recs, bp, dist = scripts._load_pair(prefix)[:4]
+    N = anc.N
+    group = np.repeat((np.arange(N // 2) >= N // 4).astype(np.int64), 2)
+    _, epochs_p, rates_p = coalrate.read_coal(prior)
+    return dict(
+        coal_stats_dealt=coal_stats_dealt(
+            mesh, [mt.tree for mt in anc.seq],
+            coalrate.tree_spans(anc, recs, dist), coalrate.default_epochs(),
+            group),
+        sample_parts=sample_parts(mesh, anc, recs, dist, epochs_p,
+                                  rates_p[:, 0, 0]))
+
+
+def phase_dealing(prefix):
+    """``--phases dealing`` (more than one card): ``mesh_dealing`` alone on
+    every card of this host, on ``run_all``'s N = 2048 output ``prefix``,
+    under the ``.coal`` of its EstimatePopulationSize on one card; the
+    mesh phase's four-card measurement without the rest of that phase."""
+    from relate_tpu_torch.parallel import mesh as pm
+    from relate_tpu_torch.pipeline import tools_cli
+
+    t_phase = time.time()
+    mesh = pm.default_mesh()
+    if len(mesh) < 2:
+        fail("dealing: needs more than one card")
+    with tempfile.TemporaryDirectory(prefix="relate_smoke_dealing_") as tmp:
+        prior = os.path.join(tmp, "prior")
+        if tools_cli.main(["CoalescentRate", "--mode",
+                           "EstimatePopulationSize", "-i", prefix, "-o",
+                           prior, "--device", DEV]) != 0:
+            fail("dealing: EstimatePopulationSize for the prior failed")
+        res = mesh_dealing(mesh, prefix, prior + ".coal")
+    emit("dealing", mesh=[str(d) for d in mesh], **res,
+         seconds=round(time.time() - t_phase, 1))
+
+
+def coal_stats_dealt(mesh, trees, spans, epochs, group,
+                     batch=MESH_STATS_BATCH):
+    """``coalescence_stats``' batches of ``batch`` trees on one card (the
+    library) and dealt over the cards of ``mesh``, batch i to card i mod D,
+    each card adding into (E, 2G, G) float64 sums of its own that
+    ``parallel.mesh.reduce_sum`` adds onto the first card: issued in turn
+    from this thread, and from a host thread a card (``per_card``). Each
+    way's ms (the second call of each), its counts equal to one card's and
+    its opportunity within rtol 1e-12."""
+    from relate_tpu_torch.evaluate import coalrate
+    from relate_tpu_torch.parallel import mesh as pm
+
+    E, N, D = len(epochs), trees[0].N, len(mesh)
+    G = int(group.max()) + 1
+    onehot = np.zeros((N, G), np.float32)
+    onehot[np.arange(N), group] = 1.0
+    live = [i for i in range(len(trees)) if spans[i] != 0.0]
+    starts = list(range(0, len(live), batch))
+
+    def inputs(dev):
+        return (torch.as_tensor(np.asarray(epochs, np.float64), device=dev),
+                torch.as_tensor(onehot, device=dev),
+                torch.as_tensor(np.asarray(spans, np.float64), device=dev),
+                torch.zeros((E, 2 * G, G), dtype=torch.float64, device=dev))
+
+    def add(dev, on, s):
+        eps_d, oh_d, f_d, PR = on
+        idx = live[s: s + batch]
+        nodes = coalrate._Nodes(trees, idx, oh_d, eps_d, None, dev)
+        coalrate._stats_batch(nodes, f_d[torch.as_tensor(idx, device=dev)],
+                              PR)
+
+    def finish(on):
+        PR = pm.reduce_sum([x[3] for x in on], mesh)
+        c, op = PR[:, :G], coalrate._opportunity(PR[:, :G], PR[:, G:],
+                                                on[0][0])
+        return (0.5 * (c + c.transpose(1, 2))).cpu().numpy(), \
+            (0.5 * (op + op.transpose(1, 2))).cpu().numpy()
+
+    def one_thread():
+        on = [inputs(d) for d in mesh]
+        for i, s in enumerate(starts):
+            add(mesh[i % D], on[i % D], s)
+        return finish(on)
+
+    def thread_a_card():
+        def card(k, dev):
+            on = inputs(dev)
+            for s in starts[k::D]:
+                add(dev, on, s)
+            return on
+        return finish(pm.per_card(mesh, card))
+
+    ways = {"one_card": lambda: coalrate.coalescence_stats(
+                trees, spans, epochs, group, batch=batch, device=mesh.first),
+            "one_thread": one_thread, "thread_a_card": thread_a_card}
+    got, ms = {}, {}
+    for w, fn in ways.items():
+        fn()
+        t0 = synced(mesh)
+        got[w] = fn()
+        ms[w] = round((synced(mesh) - t0) * 1e3, 3)
+    c1, o1 = got["one_card"]
+    for w in ("one_thread", "thread_a_card"):
+        c, op = got[w]
+        if not (np.array_equal(c, c1)
+                and np.allclose(op, o1, rtol=1e-12, atol=0.0)):
+            fail(f"mesh: coalescence_stats' batches dealt ({w}) differ from "
+                 "one card beyond rtol 1e-12")
+    return dict(trees=len(live), batch=batch, batches=len(starts), ms=ms,
+                counts_equal=True, opportunity_max_rel={
+                    w: max_rel(got[w][1], o1)
+                    for w in ("one_thread", "thread_a_card")})
+
+
+def sample_parts(mesh, anc, recs, dist, epochs, rates, seed=5):
+    """``sample_branch_lengths`` on D parts of ``chain_batch_cap`` chains
+    (the trees of ``anc`` repeated), one sample of ``PARTS_PROPOSALS``
+    proposals, three ways: the library on the first card (what
+    ``mesh=`` does), the parts dealt over the cards in turn from this
+    thread, part p on card p, and from a host thread a card (each calling
+    the library on its card with its part's seed). The draws must be
+    equal; each way's wall seconds."""
+    from relate_tpu_torch.core import mcmc
+    from relate_tpu_torch.core.trees import AncesTree
+    from relate_tpu_torch.evaluate import sampling
+    from relate_tpu_torch.parallel import mesh as pm
+
+    D, T0 = len(mesh), len(anc.seq)
+    cap = mcmc.chain_batch_cap(anc.seq[0].tree.num_nodes)
+    seq = [anc.seq[i % T0] for i in range(D * cap)]
+    kw = dict(num_samples=1, num_proposals=PARTS_PROPOSALS)
+
+    def part(k, dev):
+        return sampling.sample_branch_lengths(
+            AncesTree(N=anc.N, seq=seq[k * cap: (k + 1) * cap],
+                      sample_ages=anc.sample_ages), recs, dist, 1.25e-8,
+            epochs, rates, seed=seed + 7 * (k * cap + 1), device=dev, **kw)
+    ways = {
+        "one_card": lambda: sampling.sample_branch_lengths(
+            AncesTree(N=anc.N, seq=seq, sample_ages=anc.sample_ages), recs,
+            dist, 1.25e-8, epochs, rates, seed=seed, mesh=mesh, **kw),
+        "one_thread": lambda: np.concatenate(
+            [part(k, d) for k, d in enumerate(mesh)], axis=1),
+        "thread_a_card": lambda: np.concatenate(
+            pm.per_card(mesh, part), axis=1)}
+    got, secs = {}, {}
+    for w, fn in ways.items():
+        t0 = synced(mesh)
+        got[w] = fn()
+        secs[w] = round(synced(mesh) - t0, 3)
+        if not np.array_equal(got[w], got["one_card"]):
+            fail(f"mesh: sample_branch_lengths' parts ({w}) differ from "
+                 "one card's")
+    return dict(parts=D, chains_a_part=cap, nodes=anc.seq[0].tree.num_nodes,
+                proposals_a_sample=PARTS_PROPOSALS, s=secs, equal=True)
+
+
+def phase_hosts(G, bp, kernels):
+    """``--mode All`` on two hosts: two processes of the port's CLI
+    (``host_worker``) with ``--num_hosts 2 --host_id k`` on one store, on
+    ``G``, ``bp`` (the first ``L_SNPS_HOSTS`` SNPs of the N = 2048 panel);
+    host k on ``cuda:k`` where this host has two cards or more, else both
+    on ``cuda:0``; host 1 started first (it waits for host 0's plan). Each
+    process shrinks the chunk constants (``HOSTS_CHUNKING``, ``--memory
+    HOSTS_MEMORY_GB``: two chunks of 2,946 and 1,650 SNPs, one a host). The
+    ``.anc``/``.mut`` must equal those of one host with the same constants,
+    run first in a process of its own; host 0 finalizes and removes the
+    store, host 1 does not finalize. Each process reports its chunks, its
+    launches by kernel and its seconds; B1–B4 and B6 must be launched in
+    each one that ran a chunk."""
+    from relate_tpu_torch.utils import synth
+
+    L, N = G.shape
+    t_phase = time.time()
+    second = "cuda:1" if torch.cuda.device_count() > 1 else DEV
+    with tempfile.TemporaryDirectory(prefix="relate_smoke_hosts_") as tmp:
+        prefix = os.path.join(tmp, "panel")
+        synth.write_haps_sample(G, bp, prefix)
+        synth.write_flat_map(os.path.join(tmp, "map.txt"), int(bp[-1]))
+        common = ["--mode", "All", "--haps", prefix + ".haps", "--sample",
+                  prefix + ".sample", "--map", os.path.join(tmp, "map.txt"),
+                  "--memory", str(HOSTS_MEMORY_GB), "--theta", str(THETA),
+                  "--seed", "1"]
+        one_out, two_out = os.path.join(tmp, "one"), os.path.join(tmp, "two")
+        t0 = time.time()
+        (one,) = host_processes(tmp, [common + ["-o", one_out, "--device",
+                                                DEV]])
+        one_s = time.time() - t0
+        hosts = ["--num_hosts", "2", "--barrier_timeout",
+                 str(HOSTS_TIMEOUT_S), "-o", two_out]
+        t0 = time.time()
+        h1, h0 = host_processes(tmp, [
+            common + hosts + ["--host_id", "1", "--device", second],
+            common + hosts + ["--host_id", "0", "--device", DEV]])
+        two_s = time.time() - t0
+        equal = {ext: same_bytes(one_out + ext, two_out + ext)
+                 for ext in (".anc", ".mut")}
+        store_left = os.path.exists(two_out + ".tmpdir")
+    chunks = one["owned"]
+    path_kernels = ("paint_fwd", "paint_bwd", "paint_fwd_capture",
+                    "paint_bwd_capture", "merge_scan_large")
+    for name, rec in (("one_host", one), ("host0", h0), ("host1", h1)):
+        add_launches(kernels, f"hosts_n{N}_{name}", rec["launches"])
+    emit("hosts", N=N, L=L, memory_gb=HOSTS_MEMORY_GB,
+         chunk_constants=HOSTS_CHUNKING, chunks=len(chunks),
+         devices={"host0": DEV, "host1": second},
+         one_host=one, host0=h0, host1=h1,
+         one_host_wall_s=round(one_s, 3), two_hosts_wall_s=round(two_s, 3),
+         bytes_equal=equal, store_removed=not store_left,
+         seconds=round(time.time() - t_phase, 1))
+    if len(chunks) < 2 or chunks != list(range(len(chunks))):
+        fail(f"hosts: the one-host run combined chunks {chunks}; wanted two "
+             "or more")
+    if h0["owned"] != chunks[0::2] or h1["owned"] != chunks[1::2]:
+        fail(f"hosts: host 0 ran chunks {h0['owned']}, host 1 {h1['owned']}")
+    if not (h0["finalized"] and one["finalized"]) or h1["finalized"] \
+            or store_left:
+        fail("hosts: host 0 must finalize and remove the store, host 1 "
+             "must not finalize")
+    if not all(equal.values()):
+        fail(f"hosts: two hosts wrote other bytes than one: {equal}")
+    idle = {name: [k for k in path_kernels if rec["launches"][k] <= 0]
+            for name, rec in (("host0", h0), ("host1", h1))}
+    if any(idle.values()):
+        fail(f"hosts: kernels not launched in a host that ran a chunk: "
+             f"{idle}")
+
+
+def host_processes(tmp, argvs):
+    """One ``host_worker`` process an argument list, all started together
+    (in that order); waits for each within ``HOSTS_TIMEOUT_S`` and returns
+    the JSON object each printed last. Stops every process it started; a
+    process that fails ends the run, with the end of its output."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs, logs = [], []
+    try:
+        for argv in argvs:
+            log = tempfile.TemporaryFile("w+", dir=tmp)
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c",
+                 "import chip_smoke; chip_smoke.host_worker()", *argv],
+                cwd=here, stdout=log, stderr=subprocess.STDOUT))
+        t_end = time.time() + HOSTS_TIMEOUT_S
+        out = []
+        for p, log in zip(procs, logs):
+            try:
+                rc = p.wait(timeout=max(1.0, t_end - time.time()))
+            except subprocess.TimeoutExpired:
+                rc = None
+            log.seek(0)
+            text = log.read()
+            if rc != 0:
+                fail(f"hosts: a host process ended with {rc}: "
+                     f"{text[-3000:]}")
+            out.append(json.loads(text.strip().splitlines()[-1]))
+        return out
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+
+
+def host_worker():
+    """One process of the hosts phase: the port's CLI on this process's
+    arguments, with the chunk constants of ``HOSTS_CHUNKING``; prints as its
+    last line one JSON object: the chunks it combined, whether it
+    finalized, its launches by kernel and its wall seconds."""
+    from relate_tpu_torch.io import chunking
+    from relate_tpu_torch.pipeline import cli, relate
+    for k, v in HOSTS_CHUNKING.items():
+        setattr(chunking, k, v)
+    relate.MERGE_DISCARD = HOSTS_CHUNKING["MERGE_DISCARD"]
+    owned, finalized = [], []
+    combine, finalize = relate.combine_sections, relate.finalize
+
+    def combine_sections(store, c, **kw):
+        owned.append(c)
+        return combine(store, c, **kw)
+
+    def finalize_once(*a, **kw):
+        finalized.append(True)
+        return finalize(*a, **kw)
+    relate.combine_sections, relate.finalize = combine_sections, finalize_once
+    reset_counts()
+    t0 = time.time()
+    rc = cli.main(sys.argv[1:])
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+    print(json.dumps(dict(owned=owned, finalized=bool(finalized),
+                          launches=read_counts(),
+                          wall_s=round(time.time() - t0, 3))), flush=True)
+    sys.exit(rc)
 
 
 def same_bytes(a, b):
@@ -2796,7 +3245,7 @@ def post_process_stats(phase, stages):
 
 def phase_optimize(G, bp, memory_gb, kernels):
     """OptimizeParameters at N = 1024 on a MakeChunks store of the panel: a
-    2 x 2 grid (theta 1e-3, 1e-2; rho 1, 10) over the first 251 SNPs of
+    2 x 2 grid (theta 1e-3, 1e-2; rho 1, 10) over the first 151 SNPs of
     section 0. The launch counts are set to 0 just before and read just
     after: each grid point runs the stepping stones (B3, B4) and the repaint
     (B1, B2), and every SNP with carriers and non-carriers one tree build
@@ -3325,7 +3774,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="kernels,main_path,run_all,coalescent_rate,"
-                            "selection_mutation_rate,mesh,interchange,"
+                            "selection_mutation_rate,mesh,hosts,interchange,"
                             "run_all_n4096,"
                             "run_all_ancient,anc_unknown,"
                             "run_all_postprocess,optimize,cpu_vs_card")
@@ -3348,7 +3797,8 @@ def main():
     uses_panels = {"kernels", "main_path", "run_all", "run_all_n4096",
                    "run_all_ancient", "anc_unknown", "run_all_postprocess",
                    "optimize", "profile", "coalescent_rate",
-                   "selection_mutation_rate", "interchange", "mesh"}
+                   "selection_mutation_rate", "interchange", "mesh",
+                   "hosts", "dealing"}
     for N in (N_HAP, N_LARGE, N_INC) if phases & uses_panels else ():
         G, bp = make_panel(N, L_SNPS_INC if N == N_INC else L_SNPS)
         memory_gb = memory_auto
@@ -3376,7 +3826,7 @@ def main():
     hand = tempfile.TemporaryDirectory(prefix="relate_smoke_coal_")
     handed = os.path.join(hand.name, f"run_all_n{N_LARGE}")
     if phases & {"run_all", "coalescent_rate", "selection_mutation_rate",
-                  "mesh"}:
+                  "mesh", "dealing"}:
         one_card = phase_run_all(*panels[N_LARGE], kernels, "run_all",
                                  "merge_scan_large", hand_over=handed)
         torch.cuda.empty_cache()
@@ -3394,23 +3844,37 @@ def main():
         phase_mesh(*panels[N_HAP], *panels[N_LARGE], one_card, handed,
                    kernels)
         torch.cuda.empty_cache()
+    if "dealing" in phases:
+        phase_dealing(handed)
     hand.cleanup()
+    if "hosts" in phases:
+        G, bp = panels[N_LARGE][:2]
+        phase_hosts(G[:L_SNPS_HOSTS], bp[:L_SNPS_HOSTS], kernels)
     if "interchange" in phases:
-        phase_interchange(*panels[N_LARGE], kernels)
+        G, bp, memory_gb = panels[N_LARGE]
+        phase_interchange(G[:L_SNPS_INTERCHANGE], bp[:L_SNPS_INTERCHANGE],
+                          memory_gb, kernels)
         torch.cuda.empty_cache()
     if "run_all_n4096" in phases:
-        phase_run_all(*panels[N_INC], kernels, "run_all_n4096",
-                      "merge_scan_inc")
+        G, bp, memory_gb = panels[N_INC]
+        phase_run_all(G[:L_SNPS_RUN_ALL_INC], bp[:L_SNPS_RUN_ALL_INC],
+                      memory_gb, kernels, "run_all_n4096", "merge_scan_inc")
         torch.cuda.empty_cache()
     if "run_all_ancient" in phases:
-        phase_run_all(*panels[N_HAP], kernels, "run_all_ancient", None,
+        G, bp = panels[N_HAP][:2]
+        phase_run_all(G[:L_SNPS_ANCIENT], bp[:L_SNPS_ANCIENT],
+                      ANCIENT_MEMORY_GB, kernels, "run_all_ancient", None,
                       ages=ancient_ages(N_HAP))
         torch.cuda.empty_cache()
     if "anc_unknown" in phases:
-        phase_anc_unknown(*panels[N_HAP], kernels)
+        G, bp = panels[N_HAP][:2]
+        phase_anc_unknown(G[:L_SNPS_ANC_UNKNOWN], bp[:L_SNPS_ANC_UNKNOWN],
+                          ANC_UNKNOWN_MEMORY_GB, kernels)
         torch.cuda.empty_cache()
     if "run_all_postprocess" in phases:
-        phase_run_all(*panels[N_LARGE], kernels, "run_all_postprocess",
+        G, bp, memory_gb = panels[N_LARGE]
+        phase_run_all(G[:L_SNPS_POSTPROCESS], bp[:L_SNPS_POSTPROCESS],
+                      memory_gb, kernels, "run_all_postprocess",
                       "merge_scan_large", postprocess=True)
         torch.cuda.empty_cache()
     if "optimize" in phases:

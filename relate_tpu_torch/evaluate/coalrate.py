@@ -40,6 +40,7 @@ import torch
 from ..core import mcmc
 from ..core.topology import MutationRecord
 from ..core.trees import AncesTree, topological_order
+from ..parallel.mesh import device_and_mesh
 from ..utils.devmem import batch_rows, resolve_device
 from ..utils.trace import note, stage
 
@@ -202,7 +203,7 @@ def coalescence_stats(trees, factors: np.ndarray, epochs: np.ndarray,
                       group_of_hap: Optional[np.ndarray] = None,
                       sample_ages: Optional[np.ndarray] = None,
                       batch: Optional[int] = None, use_device: bool = True,
-                      device=None) -> Tuple[np.ndarray, np.ndarray]:
+                      device=None, mesh=None) -> Tuple[np.ndarray, np.ndarray]:
     """Per-epoch coalescence counts and opportunity by group pair.
 
     Returns (counts (E, G, G), opp (E, G, G)) float64, symmetric in the
@@ -212,9 +213,16 @@ def coalescence_stats(trees, factors: np.ndarray, epochs: np.ndarray,
 
     On ``device`` (None: the CUDA card) in batches of ``batch`` trees (None:
     sized from the card's free memory); ``use_device=False`` runs the plain
-    host twin ``_coalescence_stats_host``. Adds one dict (trees, groups,
-    batch, batches, levels, wall_s) under ``coal_stats`` to the record of
-    the ``utils.trace`` stage it runs in."""
+    host twin ``_coalescence_stats_host``. ``mesh`` (a
+    ``parallel.mesh.Mesh``, the tools' ``--devices``) runs on its first
+    card: each batch is a level loop of small launches that waits on the
+    host at ``_Nodes``, so the host, not the card, sets the pace. On four
+    NVIDIA H100 80GB HBM3 (700 W) 8 batches of 8 trees at N = 2048 took
+    120.2 ms on one card, 112.0 ms dealt to the cards from one thread and
+    675.4 ms from a thread a card (``chip_smoke.py --phases dealing``,
+    ``coal_stats_dealt``): nothing to gain. Adds one dict (trees, groups,
+    batch, batches, levels, device, wall_s) under ``coal_stats`` to the
+    record of the ``utils.trace`` stage it runs in."""
     E = len(epochs)
     N = trees[0].N
     if group_of_hap is None:
@@ -226,7 +234,7 @@ def coalescence_stats(trees, factors: np.ndarray, epochs: np.ndarray,
         return _coalescence_stats_host(trees, factors, epochs, onehot,
                                        sample_ages)
 
-    device = resolve_device(device)
+    device, _ = device_and_mesh(device, mesh)
     t0 = time.time()
     M = trees[0].num_nodes
     factors = np.asarray(factors, dtype=np.float64)
@@ -251,6 +259,7 @@ def coalescence_stats(trees, factors: np.ndarray, epochs: np.ndarray,
     out = counts.cpu().numpy(), opp.cpu().numpy()
     note("coal_stats", dict(trees=len(live), groups=G, batch=batch,
                             batches=-(-len(live) // batch), levels=levels,
+                            device=str(device),
                             wall_s=round(time.time() - t0, 4)))
     return out
 
@@ -364,9 +373,10 @@ def estimate_popsize_em(anc: AncesTree, muts: List[MutationRecord],
                         epochs: Optional[np.ndarray] = None,
                         num_iter: int = 10, seed: int = 1,
                         group_of_hap: Optional[np.ndarray] = None,
-                        verbose: bool = False, device=None):
+                        verbose: bool = False, device=None, mesh=None):
     """Joint branch-length / coalescence-rate EM on ``device`` (None: the
-    CUDA card).
+    CUDA card); ``mesh`` (the tools' ``--devices``) runs on its first card,
+    as ``coalescence_stats`` and ``sampling.sample_branch_lengths`` do.
 
     Mirrors EstimatePopulationSize.sh's loop: per-epoch rates from the
     current branch lengths (CoalRateForTree + Dump fill), then ONE
@@ -378,7 +388,7 @@ def estimate_popsize_em(anc: AncesTree, muts: List[MutationRecord],
     pairwise rates (E, G, G), whole-sample filled rates)."""
     from . import sampling
 
-    device = resolve_device(device)
+    device, _ = device_and_mesh(device, mesh)
     if epochs is None:
         epochs = default_epochs(years_per_gen)
     spans = tree_spans(anc, muts, dist)

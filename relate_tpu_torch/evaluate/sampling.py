@@ -22,7 +22,7 @@ import torch
 from ..core import mcmc
 from ..core.topology import MutationRecord
 from ..core.trees import AncesTree
-from ..utils.devmem import resolve_device
+from ..parallel.mesh import device_and_mesh
 from ..utils.trace import note
 
 
@@ -72,7 +72,8 @@ def sample_branch_lengths(anc: AncesTree, muts: List[MutationRecord],
                           epochs: np.ndarray, rates: np.ndarray,
                           num_samples: int = 100,
                           num_proposals: Optional[int] = None,
-                          seed: int = 1, device=None) -> np.ndarray:
+                          seed: int = 1, device=None,
+                          mesh=None) -> np.ndarray:
     """Posterior samples of branch lengths for every tree, on ``device``
     (None: the CUDA card).
 
@@ -80,10 +81,21 @@ def sample_branch_lengths(anc: AncesTree, muts: List[MutationRecord],
     reference's init=1 converged run), then each sample is ``num_proposals``
     proposals more without accumulation, and one download of the node ages.
     Batches above ``mcmc.chain_batch_cap`` run in parts with their own
-    seeds. Each part adds one dict (chains, nodes, rounds, converged) under
-    ``mcmc`` to the record of the ``utils.trace`` stage it runs in.
+    seeds. Each part adds one dict (chains, nodes, rounds, converged,
+    device) under ``mcmc`` to the record of the ``utils.trace`` stage it
+    runs in.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``, the tools' ``--devices``) runs on
+    its first card. A part's chains are launch-bound on the host, so no
+    way of using more cards from this process was faster: ``run_mcmc
+    (mesh=)``, which cuts one batch over the cards, was 11.1–13.6 times
+    slower than one card, and four whole parts of 256 chains at N = 2048
+    took 5.878 s on one card, 6.399 s dealt to four cards from one thread
+    and 33.149 s from a thread a card (NVIDIA H100 80GB HBM3, 700 W;
+    ``chip_smoke.py --phases dealing``, ``sample_parts``). A process a
+    card is ROADMAP item 4b-ii.
     Returns (num_samples, num_trees, 2N-1) branch lengths in generations."""
-    device = resolve_device(device)
+    device, _ = device_and_mesh(device, mesh)
     trees = [mt.tree for mt in anc.seq]
     B = len(trees)
     N = trees[0].N
@@ -115,7 +127,7 @@ def sample_branch_lengths(anc: AncesTree, muts: List[MutationRecord],
     state, rounds, conv = mcmc.run_to_convergence(
         st, state, draws, 50 * delta, max(delta, 128), 2000, True)
     note("mcmc", dict(chains=B, nodes=M, rounds=rounds,
-                      converged=int(conv.sum().item())))
+                      converged=int(conv.sum().item()), device=str(device)))
 
     # num_proposals is a proposal budget in the reference's units
     iters = max(8, int(np.ceil(num_proposals

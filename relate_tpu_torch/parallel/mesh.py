@@ -14,14 +14,17 @@ independent axes:
   ``windows[k::D]`` to card k (``pipeline.relate``);
 - **trees** (the branch-length chains): a chain batch is cut into
   contiguous blocks of chains (``core.mcmc.run_mcmc(mesh=)``);
-- **reductions**: each card counts its shard and the counts are summed onto
-  the first card (``coalescence_counts_psum``).
+- the tools (``evaluate.coalrate``, ``evaluate.sampling``) take a mesh
+  and run on its first card: their launch-bound loops gained nothing from
+  more cards driven by one process;
+- **reductions**: each card sums its shard and the sums are added onto the
+  first card in mesh order (``reduce_sum``, ``coalescence_counts_psum``).
 
-Each card is driven by a host thread of its own (``per_card``), which has
-entered its card before it allocates or launches, so one card never waits
-for the host work of another. A CUDA device appears at most once in a mesh;
-``"cpu"`` may repeat, so that the tests run 2, 3 or 8 shards on the host
-(the JAX package's tests use 8 virtual CPU devices for this).
+The targets, sections and chain blocks are driven by a host thread a card
+(``per_card``), which has entered its card before it allocates or
+launches. A CUDA device appears at most once in a mesh; ``"cpu"`` may
+repeat, so that the tests run 2, 3 or 8 shards on the host (the JAX
+package's tests use 8 virtual CPU devices for this).
 
 Sharding rule of ``shard_batch``: a ``ChainStatic``/``ChainState`` mixes
 batch-leading (B, ...) tensors with per-tree constants (``kc2_pos`` (M,),
@@ -216,12 +219,16 @@ def _epoch_counts(ages: torch.Tensor, epochs: torch.Tensor) -> torch.Tensor:
 
 
 def reduce_sum(parts: Sequence[torch.Tensor], mesh: Mesh) -> torch.Tensor:
-    """The sum of one tensor a device onto the mesh's first device: a
-    ``torch.cuda.comm.reduce_add`` across cards, a plain sum on the host."""
-    if mesh.first.type == "cuda" and len(parts) > 1:
-        from torch.cuda import comm
-        return comm.reduce_add(list(parts), destination=mesh.first.index)
-    out = parts[0].to(mesh.first).clone()
+    """The sum of one tensor a device (the first ``len(parts)`` devices of
+    the mesh) onto the mesh's first device: each part copied there and
+    added in mesh order, so the result is the same between calls. On four
+    NVIDIA H100 80GB HBM3 (700 W; ``chip_smoke.py --phases mesh``, one
+    (31, 4, 2) float64 tensor a card) its first call took 40.7 ms and later
+    ones 0.147 ms, where ``torch.cuda.comm.reduce_add`` took 3,453.7 ms on
+    its first call (it sets up a communicator) and 0.121 ms later; at
+    (31, 512, 256) 0.487 against 0.334 ms. A tool calls it a few times, so
+    the first call decides."""
+    out = parts[0].to(mesh.first, copy=True)
     for p in parts[1:]:
         out += p.to(mesh.first)
     return out

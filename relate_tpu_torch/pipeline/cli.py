@@ -22,7 +22,12 @@ The stages run on the CUDA card; ``--device cpu`` asks for the host.
 ``--devices N`` runs the modes All, Paint, BuildTopology and
 InferBranchLengths on the first N cards of the host
 (``parallel.mesh.default_mesh``; it raises if fewer are visible, and it
-does not go with ``--device``). ``--sample_ages`` (All, MakeChunks) and
+does not go with ``--device``). ``--num_hosts H --host_id k`` runs ``--mode
+All`` as host k of H on one shared store (the same command on every host,
+each with its own cards): host 0 plans the chunks and finalizes, chunk c
+runs on host c mod H, and a host that waits longer than
+``--barrier_timeout`` seconds for the plan or the other hosts' chunks
+raises. ``--sample_ages`` (All, MakeChunks) and
 ``--anc_allele_unknown`` (BuildTopology) send BuildTopology to the host
 topology builder.
 """
@@ -95,6 +100,17 @@ def build_parser():
     p.add_argument("--device", default=None,
                    help="torch device; default: the CUDA card (an error if "
                         "there is none). 'cpu' runs the plain versions.")
+    # several hosts on one shared store (--mode All): the reference's job
+    # arrays over a shared filesystem (RelateParallel.sh)
+    p.add_argument("--num_hosts", type=int, default=1,
+                   help="--mode All on this many hosts, one process each, "
+                        "on one shared store")
+    p.add_argument("--host_id", type=int, default=0,
+                   help="which of the --num_hosts this process is (0: plans "
+                        "and finalizes)")
+    p.add_argument("--barrier_timeout", type=float, default=86400.0,
+                   help="seconds a host waits for the plan or the other "
+                        "hosts' chunks before it raises")
     return p
 
 
@@ -119,6 +135,9 @@ def main(argv=None):
     rho_scale = 1.0
     if args.painting:
         theta, rho_scale = args.painting
+    if (args.num_hosts != 1 or args.host_id != 0) and mode != "All":
+        raise SystemExit(f"--num_hosts and --host_id apply to --mode All, "
+                         f"not {mode}")
     mesh = None
     if args.devices:
         if args.device is not None:
@@ -138,7 +157,9 @@ def main(argv=None):
                        sample_ages_path=args.sample_ages, coal=coal,
                        rho_scale=rho_scale, postprocess=args.postprocess,
                        annot_path=args.annot, threads=args.threads,
-                       device=args.device, mesh=mesh)
+                       device=args.device, mesh=mesh,
+                       num_hosts=args.num_hosts, host_id=args.host_id,
+                       barrier_timeout_s=args.barrier_timeout)
         return 0
 
     with stage(mode):

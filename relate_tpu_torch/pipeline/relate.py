@@ -24,13 +24,22 @@ host thread of its own with its own replica of the panel. A section keeps
 its own seed wherever it runs, so the artifacts are those of one card byte
 for byte. FindEquivalentBranches, InferBranchLengths, CombineSections,
 Finalize and PostProcess run on the first card. Not ported yet:
-InferBranchLengths on several cards and ``run_all``'s several hosts (the
-plan wait, the ``DONE`` barrier and host 0's Finalize; ROADMAP item 4b).
+InferBranchLengths on several cards (ROADMAP item 4b-ii).
+
+Several hosts (``run_all(num_hosts=, host_id=)``, the CLI's ``--num_hosts``
+and ``--host_id``): one process a host, each with its own card or mesh, all
+on one store that every host sees (a shared filesystem; no other channel).
+Host 0 runs MakeChunks; the others wait for its ``plan.json``, which is
+written last. Chunk c goes to host c mod num_hosts. Each chunk's
+CombineSections writes a ``DONE`` sentinel last; every host waits for all
+of them, and host 0 runs Finalize. A wait longer than ``barrier_timeout_s``
+raises ``TimeoutError``. The files are one host's byte for byte.
 """
 from __future__ import annotations
 
 import os
 import shutil
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
@@ -602,7 +611,8 @@ def run_all(haps_path: str, sample_path: str, map_path: str, output: str,
             postprocess: bool = False, annot_path: Optional[str] = None,
             threads: int = 1, stream_windows: int = STREAM_WINDOWS,
             cp_handoff_bytes: float = CP_HANDOFF_BYTES, device=None,
-            mesh=None):
+            mesh=None, num_hosts: int = 1, host_id: int = 0,
+            barrier_timeout_s: float = 86400.0):
     """Relate --mode All (pipeline/Relate.cpp:257-287) on ``device`` (None:
     the CUDA card), or on the cards of ``mesh`` (``parallel.mesh.Mesh``,
     e.g. ``default_mesh(4)``): Paint cuts the targets over them,
@@ -628,12 +638,32 @@ def run_all(haps_path: str, sample_path: str, map_path: str, output: str,
     ``utils.trace.STAGES`` carries the MCMC's rounds to convergence.
     ``postprocess`` inserts PostProcess and a second FindEquivalentBranches
     after the first (Relate.cpp:276-279; stages ``chunk<c>.post_process``
-    and ``chunk<c>.find_equivalent_branches.post``)."""
+    and ``chunk<c>.find_equivalent_branches.post``).
+
+    ``num_hosts`` > 1: this process is host ``host_id`` of that many, each
+    called with the same arguments and ``output`` on one shared store (the
+    module docstring). Host 0 plans the chunks; another host waits for the
+    plan, runs its chunks (c mod num_hosts == host_id) and returns once
+    every chunk is done, or once ``output``.anc exists (host 0 may have
+    finalized and removed the store); host 0 waits for every chunk and
+    finalizes. A wait longer than ``barrier_timeout_s`` seconds raises
+    ``TimeoutError``."""
     device, mesh = device_and_mesh(device, mesh)
+    if not 0 <= host_id < num_hosts:
+        raise ValueError(f"host_id {host_id} is not in [0, {num_hosts})")
     store = ArtifactStore(output + ".tmpdir")
-    plan = make_chunks(haps_path, sample_path, map_path, store.outdir,
-                       memory_gb, dist_path, use_transitions,
-                       sample_ages_path, device=device)
+    if host_id == 0:
+        plan = make_chunks(haps_path, sample_path, map_path, store.outdir,
+                           memory_gb, dist_path, use_transitions,
+                           sample_ages_path, device=device)
+    else:
+        # plan.json is written atomically and last: once it is there, so
+        # is every chunk's input
+        _wait_for(lambda: os.path.exists(store.path("plan.json")),
+                  barrier_timeout_s,
+                  f"host {host_id}: {store.path('plan.json')} did not appear "
+                  f"within {barrier_timeout_s} s: did host 0 fail?")
+        plan = store.load_plan()[0]
     if verbose:
         print(f"[relate] N={plan.N} L={plan.L} chunks={plan.num_chunks}")
     epochs = rates = None
@@ -698,7 +728,7 @@ def run_all(haps_path: str, sample_path: str, map_path: str, output: str,
         with stage(f"chunk{c}.combine_sections", verbose, mesh):
             combine_sections(store, c, cache=cache)
 
-    chunks = list(range(plan.num_chunks))
+    chunks = [c for c in range(plan.num_chunks) if c % num_hosts == host_id]
     if threads > 1 and len(chunks) > 1:
         with ThreadPoolExecutor(max_workers=threads) as ex:
             for _ in ex.map(_process_chunk, chunks):
@@ -706,6 +736,18 @@ def run_all(haps_path: str, sample_path: str, map_path: str, output: str,
     else:
         for c in chunks:
             _process_chunk(c)
+    if num_hosts > 1:
+        # DONE is written after both combined artifacts are in place, so a
+        # host never reads half a chunk
+        def all_done():
+            return ((host_id != 0 and os.path.exists(output + ".anc"))
+                    or all(os.path.exists(store.path(f"chunk_{c}", "DONE"))
+                           for c in range(plan.num_chunks)))
+        _wait_for(all_done, barrier_timeout_s,
+                  f"host {host_id}: not every chunk's DONE appeared within "
+                  f"{barrier_timeout_s} s: did a host fail?")
+        if host_id != 0:
+            return output
     with stage("finalize", verbose, mesh):
         nnm, nfl = finalize(store, output, cleanup=cleanup,
                             annot_path=annot_path, cache=fin_cache)
@@ -714,6 +756,16 @@ def run_all(haps_path: str, sample_path: str, map_path: str, output: str,
         print(f"[relate] Number of flipped SNPs    : {nfl}")
         summary()
     return output
+
+
+def _wait_for(ready, timeout_s: float, what: str, poll_s: float = 0.2):
+    """Polls ``ready()`` until it is true; raises ``TimeoutError(what)``
+    after ``timeout_s`` seconds."""
+    t0 = time.time()
+    while not ready():
+        if time.time() - t0 > timeout_s:
+            raise TimeoutError(what)
+        time.sleep(poll_s)
 
 
 def read_opt_grid(path: str):

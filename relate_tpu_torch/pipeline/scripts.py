@@ -20,6 +20,7 @@ from ..core.topology import MutationRecord
 from ..evaluate import coalrate, sampling, selection
 from ..io import ancmut, extract, fileformats
 from ..io import haps as hio
+from ..parallel.mesh import device_and_mesh
 from ..utils.devmem import resolve_device
 
 
@@ -61,11 +62,12 @@ def estimate_population_size(input_prefix: str, output_prefix: str,
                              num_iter: int = 10, seed: int = 1,
                              threshold_frac: float = 0.5,
                              reestimate_final: bool = True,
-                             verbose: bool = True, device=None):
+                             verbose: bool = True, device=None, mesh=None):
     """EstimatePopulationSize.sh: joint EM over coalescence rates and branch
     lengths; writes <output>.coal (+ by-group pairwise if poplabels) and the
-    re-estimated <output>.anc/.mut."""
-    device = resolve_device(device)
+    re-estimated <output>.anc/.mut. ``mesh`` runs on its first card
+    (``coalrate.estimate_popsize_em``)."""
+    device, _ = device_and_mesh(device, mesh)
     anc, recs, bp, dist, rsid, alleles = _load_pair(input_prefix)
     if threshold_frac > 0:
         anc, recs = extract.remove_trees_with_few_mutations(
@@ -135,10 +137,12 @@ def sample_branch_lengths(input_prefix: str, output_prefix: str,
                           num_samples: int = 100,
                           first_bp: Optional[int] = None,
                           last_bp: Optional[int] = None,
-                          fmt: str = "anc", seed: int = 1, device=None):
+                          fmt: str = "anc", seed: int = 1, device=None,
+                          mesh=None):
     """SampleBranchLengths.sh: posterior branch-length samples under a .coal
-    prior; fmt in {anc, newick, timeb}."""
-    device = resolve_device(device)
+    prior; fmt in {anc, newick, timeb}. ``mesh`` runs on its first card
+    (``sampling.sample_branch_lengths``)."""
+    device, _ = device_and_mesh(device, mesh)
     anc, recs, bp, dist, rsid, alleles = _load_pair(input_prefix)
     if first_bp is not None and last_bp is not None:
         anc, recs, (lo, hi) = extract.anc_mut_for_subregion(

@@ -45,10 +45,16 @@ and a ``.png`` when matplotlib imports), MutationsOnBranches (``.muts``)
 and BranchesBelowMutation (``.branches``).
 
 Extract, FileFormats and TreeView are host code. The other tools run on the
-CUDA card; ``--device cpu`` asks for the host. ``--devices`` (the tools'
-reductions over several cards) is not ported yet and exits with the ROADMAP
-item that names it (4b); ``Relate --mode All --devices N`` is
-``pipeline/cli.py``'s.
+CUDA card; ``--device cpu`` asks for the host. ``--devices N`` runs
+CoalescentRate's EstimatePopulationSize (also with ``--poplabels``),
+EstimatePopulationSizeEM and SampleBranchLengths on the first N cards of
+the host (``parallel.mesh.default_mesh``, which raises if fewer are
+visible), for parity with the JAX package's flag: the work runs on the
+first of them, since more cards driven from one process were no faster
+(``evaluate.sampling.sample_branch_lengths``; a process a card is ROADMAP
+item 4b-ii), and the files are those of one card. It does not go with
+``--device`` nor with another tool or mode. ``Relate --mode All --devices
+N`` is ``pipeline/cli.py``'s.
 """
 from __future__ import annotations
 
@@ -57,6 +63,9 @@ import sys
 
 import numpy as np
 
+# the CoalescentRate modes that take --devices
+MESH_MODES = ("EstimatePopulationSize", "EstimatePopulationSizeEM",
+              "SampleBranchLengths")
 TOOLS = ("CoalescentRate", "MutationRate", "Selection", "Extract",
          "TreeView", "FileFormats")
 COALESCENT_RATE_MODES = ("EstimatePopulationSize", "CoalRateForTree",
@@ -110,8 +119,10 @@ def _chr_list(args):
 def coalescent_rate(args):
     from ..evaluate import coalrate
     from ..utils.devmem import resolve_device
+    from ..parallel import mesh as pm
     from . import scripts
-    device = resolve_device(args.device)
+    device = pm.default_mesh(args.devices).first if args.devices \
+        else resolve_device(args.device)
     epochs = coalrate.epochs_from_bins(*args.bins, args.years_per_gen) \
         if args.bins else coalrate.default_epochs(args.years_per_gen)
     if args.mode == "EstimatePopulationSize":
@@ -608,8 +619,9 @@ def build_parser():
     p.add_argument("--remove_ids")
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--devices", type=int, default=0,
-                   help="several cards for the tools' reductions: not "
-                        "ported yet (ROADMAP section A, item 4b)")
+                   help="ask for N CUDA cards (CoalescentRate --mode "
+                        + ", ".join(MESH_MODES) + "); raises if fewer "
+                        "are visible, runs on the first; 0: one device")
     p.add_argument("--device", default=None,
                    help="torch device; default: the CUDA card (an error if "
                         "there is none). 'cpu' runs on the host.")
@@ -619,10 +631,14 @@ def build_parser():
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.devices:
-        raise SystemExit("--devices (the tools' reductions over several "
-                         "cards: coalescence_stats, the EM, "
-                         "sample_branch_lengths) is not ported yet: ROADMAP "
-                         "section A, item 4b")
+        if args.device is not None:
+            raise SystemExit("--devices N runs on the first N cards; it "
+                             "does not go with --device")
+        if args.tool != "CoalescentRate" or args.mode not in MESH_MODES:
+            raise SystemExit(
+                "--devices applies to CoalescentRate --mode "
+                + ", ".join(MESH_MODES) + f", not {args.tool} --mode "
+                + (args.mode or "(none)"))
     from ..utils.trace import stage
     with stage(f"{args.tool}.{args.mode or 'default'}"):
         {"CoalescentRate": coalescent_rate, "MutationRate": mutation_rate,
