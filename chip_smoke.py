@@ -51,14 +51,22 @@ CLI and checks what they wrote:
   one card on a one-card host): the Painter at N = 1024 with the mesh
   against one card (bit for bit), ``run_all(mesh=)`` at N = 2048 whose
   files must equal the one-card ``run_all``'s byte for byte, with each
-  kernel's launches by card, ``run_mcmc(mesh=)`` on 9 trees,
-  ``coalescence_counts_psum`` and ``dryrun``; the CoalescentRate tool on the
-  ``run_all`` output at N = 2048 through ``--devices`` beside one card
+  kernel's launches by card (its InferBranchLengths on a pool of one
+  process a card where there are several), InferBranchLengths of that
+  run again through a pool of one process a card of the mesh (one worker
+  on ``cuda:0`` on a one-card host) and in this process on the first
+  card, each writing the same section files, ``run_mcmc(mesh=)`` on 9
+  trees, ``coalescence_counts_psum`` and ``dryrun``; the CoalescentRate
+  tool on the ``run_all`` output at N = 2048 through ``--devices`` beside
+  one card
   (EstimatePopulationSize with two groups, EstimatePopulationSizeEM, one
   iteration, SampleBranchLengths, 2 samples: the files equal byte for byte)
   and ``coalescence_stats`` in batches of 8 trees; with more than one card
-  also ``reduce_sum`` beside ``torch.cuda.comm.reduce_add`` and the chains'
-  parts from one thread beside a thread a card;
+  also ``reduce_sum`` beside ``torch.cuda.comm.reduce_add``, the chains'
+  parts from one thread beside a thread a card, InferBranchLengths' chains
+  dealt to the cards from one thread, and the Painter's stepping stones cut
+  over the cards a thread a card with the host planner's share of each
+  thread;
 - ``--mode All`` on two hosts at N = 2048 and L = 4096: two processes of
   the port's CLI (``--num_hosts 2 --host_id k``) on one store, with chunk
   constants that plan the panel as two chunks, whose files must equal one
@@ -92,7 +100,8 @@ ms of ``log_pvalue_batch`` on the card and the CPU, ``compute_freq_lin``'s
 ms a tree on both, the tails of 50,000 SNPs on the card, the device peak;
 the card against the CPU), ``mesh`` (the cards, the Painter's and each
 stage's time with the mesh beside one card's, the launches by card, each
-card's peak memory; ``--phases mesh`` runs the one-card ``run_all`` it
+card's peak memory, the pool's start by worker and InferBranchLengths
+through it beside one card; ``--phases mesh`` runs the one-card ``run_all`` it
 compares with, and on a host with four cards uses all four),
 ``dealing`` (not run by default; more than one card: the one-card
 ``run_all`` and then only the mesh phase's ``mesh_dealing``),
@@ -1507,40 +1516,58 @@ def phase_mesh(G_hap, bp_hap, mem_hap, G, bp, memory_gb, one_card,
     each card named once; on a one-card host a mesh of that card, where the
     threads, the dispatch and the gathers run with no copy between cards).
 
+    - A ``parallel.pool.CardPool`` of the mesh (one worker on ``cuda:0``
+      on a one-card host) started first, so that its start overlaps the
+      steps below.
     - The Painter at N = 1024 (the main path's panel) with the mesh against
       the one-card Painter: checkpoints, posteriors and plans of every
       window equal bit for bit; both timed after one call each that starts
-      every card.
+      every card. With more than one card also the stepping stones cut
+      over the cards, a thread a card, split into the host planner and the
+      rest on each thread (``painter_threads``).
     - ``run_all(mesh=)`` at N = 2048, L = 8192 (the ``run_all`` phase's
       panel, seed and budget): its .anc/.mut must equal that phase's output
       byte for byte (``handed``); each stage's time beside that phase's
-      (``one_card``), the launches of each kernel by card (B1 to B4 and B6
-      on every card of the mesh), each card's peak memory.
-    - With more than one card, InferBranchLengths' chain batches of that
-      run on the cards from one thread, from a thread a card, from a
-      process a card, and section 0 beside threads of host-only ops
-      (``infer_threads_or_not``): why whole sections on the cards, a
-      thread each, are slower than one card.
+      (``one_card``), the launches of each kernel by card (B3 and B4 of
+      Paint on the first card, B1, B2 and B6 of BuildTopology on every
+      card that built a section), each card's peak memory, the start of
+      its own pool by worker where it has one.
+    - InferBranchLengths of that run's store again, through the pool
+      started first (twice: cold workers, then warm) and in this process
+      on the first card, each writing that run's section files byte for
+      byte; with more than one card also its chains dealt to the cards
+      from this thread (``infer_threads_or_not``).
     - ``run_mcmc(mesh=)`` on the first 9 trees of section 0 of that run
-      against ``mesh=None`` (rtol 1e-5, atol 1e-3).
+      against ``mesh=None`` (rtol 1e-5, atol 1e-3; it runs on the first
+      card), timed in the order card, mesh, mesh, card.
     - ``coalescence_counts_psum`` on the node ages of the final trees
       against a count on the host, and ``dryrun(len(mesh))``.
     """
     from relate_tpu_torch.parallel import mesh as pm
+
+    from relate_tpu_torch.parallel.pool import CardPool
 
     t_phase = time.time()
     mesh = pm.default_mesh()
     cards = [str(d) for d in mesh]
     res = dict(mesh=cards, cards=len(mesh),
                card_names=[torch.cuda.get_device_name(d) for d in mesh])
+    # the mesh's pool, and with several cards the two dealings of
+    # infer_on_pool's two-card comparison, all started before the steps
+    # that follow
+    pools = [CardPool(m, timeout_s=600.0) for m in
+             [mesh] + ([mesh[:2], mesh[:1], mesh[1:2]] if len(mesh) > 1
+                       else [])]
     try:
         if len(mesh) > 1:
             # before any other sum across cards of this process
             res["reduce_sum"] = reduce_first_and_later(mesh)
-        mesh_steps(res, mesh, pm, G_hap, bp_hap, mem_hap, G, bp, memory_gb,
-                   one_card, handed, kernels)
+        mesh_steps(res, mesh, pm, pools, G_hap, bp_hap, mem_hap, G, bp,
+                   memory_gb, one_card, handed, kernels)
         res["tools"] = mesh_tools(mesh, handed)
     finally:
+        for p in pools:
+            p.close()
         # what was measured before a failure is printed too
         emit("mesh", **res, seconds=round(time.time() - t_phase, 1))
     if not res["run_all"]["bytes_equal"]:
@@ -1549,6 +1576,9 @@ def phase_mesh(G_hap, bp_hap, mem_hap, G, bp, memory_gb, one_card,
     if res["run_all"]["idle"]:
         fail(f"mesh: kernels not launched on every card: "
              f"{res['run_all']['idle']}")
+    if not res["infer_pool"]["bytes_equal"]:
+        fail(f"mesh: InferBranchLengths through the pool or on one card "
+             f"wrote other section files: {res['infer_pool']['bytes']}")
     if not res["run_mcmc"]["within_tolerance"]:
         fail(f"mesh: run_mcmc(mesh=) differs from one card by "
              f"{res['run_mcmc']['max_abs_diff']}")
@@ -1563,8 +1593,9 @@ def phase_mesh(G_hap, bp_hap, mem_hap, G, bp, memory_gb, one_card,
 
 def mesh_painter(res, mesh, G_hap, bp_hap, mem_hap):
     """The Painter at N = 1024 with the mesh against one card: checkpoints,
-    posteriors and plans of every window equal bit for bit; both timed
-    after one call each that starts every card."""
+    posteriors and plans of every window equal bit for bit; after one call
+    each that starts every card, timed in the order card, mesh, mesh,
+    card."""
     from relate_tpu_torch.core import painting
     from relate_tpu_torch.io import chunking
     from relate_tpu_torch.io import haps as hio
@@ -1576,21 +1607,23 @@ def mesh_painter(res, mesh, G_hap, bp_hap, mem_hap):
     bounds = np.asarray(chunking.plan_chunks_and_windows(
         G_hap, mem_hap)[1][0].boundaries)
     model = painting.PaintingModel(N=N1, theta=THETA)
-    painter_times = {}
+    painters = {"card": painting.Painter(G_hap, r, model, device=DEV),
+                "mesh": painting.Painter(G_hap, r, model, mesh=mesh)}
+    for p in painters.values():
+        paint_all_windows(p, bounds)                # starts every card
+    painter_times = {"card": [], "mesh": []}
     outs = {}
-    for name, kw in (("card", dict(device=DEV)), ("mesh", dict(mesh=mesh))):
-        painter = painting.Painter(G_hap, r, model, **kw)
-        paint_all_windows(painter, bounds)          # starts every card
-        for d in mesh:
-            torch.cuda.synchronize(d)
-        t0 = time.time()
-        outs[name] = paint_all_windows(painter, bounds)
-        for d in mesh:
-            torch.cuda.synchronize(d)
-        painter_times[name] = round(time.time() - t0, 3)
-        del painter
+    for name in ("card", "mesh", "mesh", "card"):
+        t0 = synced(mesh)
+        out = paint_all_windows(painters[name], bounds)
+        painter_times[name].append(round(synced(mesh) - t0, 3))
+        outs.setdefault(name, out)
+        del out
+    del painters
     res["painter"] = dict(N=N1, L=L1, windows=len(bounds) - 1,
-                          wall_s=painter_times)
+                          wall_s=painter_times, mesh_over_card=round(
+                              sum(painter_times["mesh"])
+                              / sum(painter_times["card"]), 3))
     (cps1, post1), (cps, post) = outs["card"], outs["mesh"]
     for w, (c1, c) in enumerate(zip(cps1, cps)):
         for f in ("alpha", "beta", "ls_alpha", "ls_beta", "bsb", "bse"):
@@ -1608,8 +1641,8 @@ def mesh_painter(res, mesh, G_hap, bp_hap, mem_hap):
     res["painter"]["bit_equal"] = True
 
 
-def mesh_steps(res, mesh, pm, G_hap, bp_hap, mem_hap, G, bp, memory_gb,
-               one_card, handed, kernels):
+def mesh_steps(res, mesh, pm, pools, G_hap, bp_hap, mem_hap, G, bp,
+               memory_gb, one_card, handed, kernels):
     """The steps of ``phase_mesh``, each adding its numbers to ``res``."""
     from relate_tpu_torch.core import mcmc
     from relate_tpu_torch.io import ancmut
@@ -1624,6 +1657,9 @@ def mesh_steps(res, mesh, pm, G_hap, bp_hap, mem_hap, G, bp, memory_gb,
     # in a function of its own, so that none of its posteriors stays
     # allocated through the run_all below (and in its peak memory)
     mesh_painter(res, mesh, G_hap, bp_hap, mem_hap)
+    if len(mesh) > 1:
+        res["painter_threads"] = painter_threads(mesh, G_hap, bp_hap,
+                                                 mem_hap)
     torch.cuda.empty_cache()
 
     # run_all on the mesh at N = 2048
@@ -1656,47 +1692,57 @@ def mesh_steps(res, mesh, pm, G_hap, bp_hap, mem_hap, G, bp, memory_gb,
         secs = [ancmut.read_anc_bin(store.path("chunk_0", f"trees_{w}.anc"))
                 for w in range(ch.windows.num_windows)]
         final = ancmut.read_anc_text(out + ".anc")
+        stages = [dict(r) for r in STAGES]
+        res["infer_pool"] = infer_on_pool(pools, store, mesh)
 
     add_launches(kernels, f"mesh_run_all_n{N}", counts)
     for k in kernels:
         k.setdefault("launches_by_card", {})[f"mesh_run_all_n{N}"] = \
             by_card[k["name"]]
-    path_kernels = ("paint_fwd", "paint_bwd", "paint_fwd_capture",
-                    "paint_bwd_capture", "merge_scan_large")
-    idle = {n: [c for c in cards if by_card[n].get(c, 0) <= 0]
-            for n in path_kernels}
+    # Paint's capture sweeps run on the first card, BuildTopology's repaint
+    # and merge scan on every card that got a section
+    builders = cards[:min(len(cards), ch.windows.num_windows)]
+    on = {"paint_fwd_capture": cards[:1], "paint_bwd_capture": cards[:1],
+          "paint_fwd": builders, "paint_bwd": builders,
+          "merge_scan_large": builders}
+    idle = {n: [c for c in want if by_card[n].get(c, 0) <= 0]
+            for n, want in on.items()}
     res["run_all"] = dict(
         N=N, L=L, windows=ch.windows.num_windows, memory_gb=memory_gb,
         wall_s=round(wall, 3), one_card_wall_s=one_card["wall_s"],
         stages={r["stage"]: dict(mesh=r["wall_s"],
                                  one_card=one_card["stages"].get(r["stage"]),
                                  cpu_s=r["cpu_s"],
-                                 peak_mb_by_card=r.get("dev_peak_mb_by_card"))
-                for r in STAGES},
+                                 peak_mb_by_card=r.get("dev_peak_mb_by_card"),
+                                 **({"pool_start_s": r["pool_start_s"]}
+                                    if "pool_start_s" in r else {}))
+                for r in stages},
         bytes_equal=all(equal.values()), bytes=equal, launches=counts,
         launches_by_card=by_card,
         idle={n: c for n, c in idle.items() if c},
         peak_device_memory_mb_by_card=peaks,
-        mcmc=[m for rec in STAGES for m in rec.get("mcmc", [])])
-
-    if len(mesh) > 1:
-        res["infer_threads"] = infer_threads_or_not(mesh, secs, ch)
+        mcmc=[m for rec in stages for m in rec.get("mcmc", [])])
 
     # run_mcmc on 9 trees with and without the mesh
     trees = [mt.tree for mt in secs[0].seq[:9]]
     dist = ch.dist.astype(np.float64)
-    chains = {}
-    mcmc_times = {}
-    for name, kw in (("card", dict(device=DEV)), ("mesh", dict(mesh=mesh))):
-        t0 = time.time()
-        chains[name] = mcmc.run_mcmc(trees, dist, ch.L, seed=11, **kw)
-        mcmc_times[name] = round(time.time() - t0, 3)
+    chains = []
+    mcmc_times = {"card": [], "mesh": []}
+    ways = {"card": dict(device=DEV), "mesh": dict(mesh=mesh)}
+    for name in ("card", "mesh", "mesh", "card"):
+        t0 = synced(mesh)
+        chains.append(mcmc.run_mcmc(trees, dist, ch.L, seed=11,
+                                    **ways[name]))
+        mcmc_times[name].append(round(synced(mesh) - t0, 3))
     res["run_mcmc"] = dict(
         trees=len(trees), nodes=trees[0].num_nodes,
-        max_abs_diff=float(np.abs(chains["mesh"] - chains["card"]).max()),
-        within_tolerance=bool(np.allclose(chains["mesh"], chains["card"],
-                                          rtol=1e-5, atol=1e-3)),
-        wall_s=mcmc_times, tolerance="rtol 1e-5, atol 1e-3")
+        max_abs_diff=max(float(np.abs(c - chains[0]).max())
+                         for c in chains),
+        within_tolerance=all(np.allclose(c, chains[0], rtol=1e-5, atol=1e-3)
+                             for c in chains),
+        wall_s=mcmc_times, mesh_over_card=round(
+            sum(mcmc_times["mesh"]) / sum(mcmc_times["card"]), 3),
+        tolerance="rtol 1e-5, atol 1e-3")
 
     # the reduction and the dry run
     ages = node_ages(final)
@@ -1717,187 +1763,227 @@ def mesh_steps(res, mesh, pm, G_hap, bp_hap, mem_hap, G, bp, memory_gb,
                                                            3))
 
 
-def infer_threads_or_not(mesh, secs, ch):
-    """InferBranchLengths' chain batches (one a section, with the seeds of
-    ``relate.infer_branch_lengths``), section w on card w mod D, issued
-    four ways, each of which must give the lengths that ``run_all`` wrote:
-
-    - ``one_thread``: from this thread, the sections one after the other
-      (each section's seconds too);
-    - ``thread_a_card``: from a host thread a card, as whole sections on
-      the cards would be run in one process;
-    - ``process_a_card``: from a process a card (``chains_worker``), each
-      started after one untimed batch on its card; the wall time from the
-      common start to the last end;
-    - ``beside_host_ops``: section 0 alone on the first card, from this
-      thread, while D - 1 threads issue host-only PyTorch ops (each of
-      which takes and gives back the interpreter lock, with no CUDA).
-
-    ``cpu_s`` is each thread's or process's own CPU time
-    (``time.thread_time``). The same launches on the same cards each way,
-    so the differences are the host's: within one process or not, and the
-    interpreter lock's traffic without any CUDA call beside it."""
-    import threading
-    from concurrent.futures import ThreadPoolExecutor
-
-    from relate_tpu_torch.core import mcmc
-    from relate_tpu_torch.parallel import mesh as pm
-    D, W = len(mesh), len(secs)
-    dist = ch.dist.astype(np.float64)
-
-    def chains(w, dev):
-        return mcmc.run_mcmc([mt.tree for mt in secs[w].seq], dist, ch.L,
-                             seed=1 + 7919 + w, device=dev)
-
-    def synced():
-        for d in mesh:
-            torch.cuda.synchronize(d)
-        return time.time()
-
-    want = {w: np.stack([mt.tree.branch_length for mt in secs[w].seq])
-            for w in range(W)}
-    res = dict(sections=W, chains=[len(secs[w].seq) for w in range(W)])
-
-    one, per_section = {}, []
-    c0 = time.thread_time()
-    t0 = synced()
-    for w in range(W):
-        one[w] = chains(w, mesh[w % D])
-        per_section.append(round(synced() - t0 - sum(per_section), 3))
-    res["one_thread"] = dict(s=round(synced() - t0, 3),
-                             section_s=per_section,
-                             cpu_s=round(time.thread_time() - c0, 3))
-
-    def card(k, dev):
-        c = time.thread_time()
-        out = [(w, chains(w, dev)) for w in range(k, W, D)]
-        torch.cuda.synchronize(dev)
-        return out, round(time.thread_time() - c, 3)
-
-    t0 = synced()
-    parts = pm.per_card(mesh, card, min(D, W))
-    threaded = dict(p for part, _ in parts for p in part)
-    res["thread_a_card"] = dict(s=round(synced() - t0, 3),
-                                cpu_s=[c for _, c in parts])
-
-    procs, by_proc = chains_in_processes(mesh, secs, ch)
-    res["process_a_card"] = procs
-
-    stop = threading.Event()
-
-    def host_ops():
-        x = torch.zeros(8)
-        c, n = time.thread_time(), 0
-        while not stop.is_set():
-            x.add_(1.0)
-            n += 1
-        return n, round(time.thread_time() - c, 3)
-
-    with ThreadPoolExecutor(max_workers=D - 1) as pool:
-        noise = [pool.submit(host_ops) for _ in range(D - 1)]
-        c0 = time.thread_time()
-        t0 = synced()
-        beside = chains(0, mesh[0])
-        t1 = synced()
-        c1 = time.thread_time()
-        stop.set()
-        noise = [f.result() for f in noise]
-    res["beside_host_ops"] = dict(
-        section=0, s=round(t1 - t0, 3), alone_s=per_section[0],
-        cpu_s=round(c1 - c0, 3), host_threads=D - 1,
-        host_ops=[n for n, _ in noise], host_cpu_s=[c for _, c in noise])
-
-    equal = all(np.array_equal(got[w], want[w])
-                for got in (one, threaded, by_proc) for w in range(W)) \
-        and np.array_equal(beside, want[0])
-    res["equal"] = equal
-    if not equal:
-        fail("mesh: InferBranchLengths' chains on the cards differ from the "
-             "lengths run_all wrote")
+def infer_on_pool(pools, store, mesh):
+    """InferBranchLengths of ``run_all``'s chunk 0 again on its ``store``,
+    each way writing the section files that ``run_all`` wrote (the chains
+    do not read the lengths they replace), which must stay byte for byte:
+    through ``pools[0]`` (a ``parallel.pool.CardPool`` of the mesh, started
+    at the phase's start: each worker's seconds until it was ready), twice
+    (its workers cold, then warm), and in this process on the first card.
+    Each way's stage seconds and ``mcmc`` notes (one a section); with more
+    than one card also ``dealing_on_two_cards`` (``pools[1:]``) and
+    ``infer_threads_or_not``."""
+    from relate_tpu_torch.pipeline import relate
+    from relate_tpu_torch.utils.trace import STAGES, stage
+    W = store.load_chunk(0).windows.num_windows
+    paths = [store.path("chunk_0", f"trees_{w}.anc") for w in range(W)]
+    want = [open(p, "rb").read() for p in paths]
+    pool = pools[0]
+    t0 = time.time()
+    start_s = pool.start_s()
+    res = dict(workers=[str(d) for d in pool.mesh], pool_start_s=start_s,
+               wait_for_start_s=round(time.time() - t0, 3), sections=W)
+    equal = {}
+    for way in ("pool_cold", "pool_warm", "one_card"):
+        kw = (dict(pool=pool) if way.startswith("pool")
+              else dict(device=mesh.first))
+        with stage(f"infer_{way}", verbose=False, devices=mesh):
+            relate.infer_branch_lengths(store, 0, seed=1, **kw)
+        rec = STAGES[-1]
+        res[way] = dict(s=rec["wall_s"], mcmc_notes=len(rec.get("mcmc", [])),
+                        peak_mb_by_card=rec.get("dev_peak_mb_by_card"))
+        equal[way] = all(open(p, "rb").read() == b
+                         for p, b in zip(paths, want))
+    res["pool_warm_over_one_card"] = round(
+        res["pool_warm"]["s"] / res["one_card"]["s"], 3)
+    res["bytes"] = equal
+    res["bytes_equal"] = all(equal.values()) and all(
+        res[w]["mcmc_notes"] == W for w in ("pool_cold", "pool_warm",
+                                            "one_card"))
+    if len(mesh) > 1:
+        res["dealing_on_two_cards"] = dealing_on_two_cards(
+            pools[1], pools[2:], store, paths, want)
+        res["infer_threads"] = infer_threads_or_not(mesh, store)
     return res
 
 
-def chains_in_processes(mesh, secs, ch, timeout_s=600.0):
-    """The ``process_a_card`` part of ``infer_threads_or_not``: one
-    ``chains_worker`` process a card, started together once every one has
-    run its untimed batch. Returns the timings and the lengths by section;
-    stops every process it started."""
-    import pickle
-    D, W = len(mesh), len(secs)
-    here = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryDirectory(prefix="relate_smoke_chains_") as tmp:
-        job = os.path.join(tmp, "job.pkl")
-        with open(job, "wb") as f:
-            pickle.dump(dict(trees=[[mt.tree for mt in s.seq] for s in secs],
-                             dist=ch.dist.astype(np.float64), L=int(ch.L),
-                             mesh=[str(d) for d in mesh]), f)
-        procs = [subprocess.Popen(
-            [sys.executable, "-c",
-             f"import chip_smoke; chip_smoke.chains_worker({job!r}, {k})"],
-            cwd=here) for k in range(min(D, W))]
-        try:
-            t_end = time.time() + timeout_s
-            while not all(os.path.exists(f"{job}.ready{k}")
-                          for k in range(len(procs))):
-                if any(p.poll() is not None for p in procs) \
-                        or time.time() > t_end:
-                    fail("mesh: a chains_worker process ended or hung before "
-                         "its start")
-                time.sleep(0.01)
-            open(job + ".go", "w").close()
-            for p in procs:
-                if p.wait(timeout=max(1.0, t_end - time.time())) != 0:
-                    fail(f"mesh: a chains_worker process exited {p.returncode}")
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        outs = []
-        for k in range(len(procs)):
-            with open(f"{job}.out{k}", "rb") as f:
-                outs.append(pickle.load(f))
-    lengths = {w: bl for o in outs for w, bl in o["lengths"].items()}
-    return dict(s=round(max(o["t1"] for o in outs)
-                        - min(o["t0"] for o in outs), 3),
-                each_s=[round(o["t1"] - o["t0"], 3) for o in outs],
-                warm_s=[o["warm_s"] for o in outs],
-                cpu_s=[o["cpu_s"] for o in outs]), lengths
+def dealing_on_two_cards(two, each, store, paths, want):
+    """InferBranchLengths' sections of ``store``'s chunk 0 on the first two
+    cards, dealt two ways: the library's queue, the longest sections first,
+    to whichever worker of ``two`` (a pool of the two cards) is free, and
+    section w to card w mod 2, each card's sections issued to its own
+    one-worker pool of ``each`` from a thread of its own. Each way twice
+    (cold, warm workers) in the order queue, mod, mod, queue; every run
+    must leave the section files byte for byte."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from relate_tpu_torch.pipeline import relate
+    W = store.load_chunk(0).windows.num_windows
+
+    def queue():
+        relate.infer_branch_lengths(store, 0, seed=1, pool=two)
+
+    def mod():
+        def card(k):
+            for w in range(k, W, 2):
+                relate.infer_branch_lengths(store, 0, seed=1, pool=each[k],
+                                            first_section=w, last_section=w)
+        with ThreadPoolExecutor(max_workers=2) as ex:
+            for f in [ex.submit(card, k) for k in range(2)]:
+                f.result()
+
+    for p in [two] + list(each):
+        p.start_s()
+    res = {"queue": [], "mod": []}
+    equal = True
+    for name, fn in (("queue", queue), ("mod", mod), ("mod", mod),
+                     ("queue", queue)):
+        t0 = time.time()
+        fn()
+        res[name].append(round(time.time() - t0, 3))
+        equal &= all(open(p, "rb").read() == b for p, b in zip(paths, want))
+    res["equal"] = equal
+    if not equal:
+        fail("mesh: InferBranchLengths dealt to two cards wrote other "
+             "section files")
+    return res
 
 
-def chains_worker(job, k):
-    """One process of ``chains_in_processes``: on card k of the job's mesh,
-    the chains of section k once untimed, then, when the parent says go,
-    those of sections k, k + D, ... timed; writes the lengths and times."""
-    import pickle
-
+def infer_threads_or_not(mesh, store):
+    """InferBranchLengths' chain batches of ``store``'s chunk 0 (one a
+    section, with the seeds of ``relate.infer_branch_lengths``), section w
+    on card w mod D, issued from this thread one after the other (each
+    section's seconds too; ``one_thread``): the design of one process for
+    several cards, beside the pool of one process a card timed in
+    ``infer_on_pool``. The lengths must be those the files hold."""
     from relate_tpu_torch.core import mcmc
-    with open(job, "rb") as f:
-        j = pickle.load(f)
-    dev = torch.device(j["mesh"][k])
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
-    D, W = len(j["mesh"]), len(j["trees"])
+    from relate_tpu_torch.io import ancmut
+    D = len(mesh)
+    ch = store.load_chunk(0)
+    W = ch.windows.num_windows
+    secs = [ancmut.read_anc_bin(store.path("chunk_0", f"trees_{w}.anc"))
+            for w in range(W)]
+    dist = ch.dist.astype(np.float64)
+    got, per_section = {}, []
+    c0 = time.thread_time()
+    t0 = synced(mesh)
+    for w in range(W):
+        got[w] = mcmc.run_mcmc([mt.tree for mt in secs[w].seq], dist, ch.L,
+                               seed=1 + 7919 + w, device=mesh[w % D])
+        per_section.append(round(synced(mesh) - t0 - sum(per_section), 3))
+    res = dict(sections=W, chains=[len(s.seq) for s in secs],
+               one_thread=dict(s=round(synced(mesh) - t0, 3),
+                               section_s=per_section,
+                               cpu_s=round(time.thread_time() - c0, 3)))
+    res["equal"] = all(
+        np.array_equal(got[w], np.stack([mt.tree.branch_length
+                                         for mt in secs[w].seq]))
+        for w in range(W))
+    if not res["equal"]:
+        fail("mesh: InferBranchLengths' chains dealt to the cards from one "
+             "thread differ from the lengths of the files")
+    return res
 
-    def chains(w):
-        out = mcmc.run_mcmc(j["trees"][w], j["dist"], j["L"],
-                            seed=1 + 7919 + w, device=dev)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        return out
 
-    t = time.time()
-    chains(k)
-    warm_s = round(time.time() - t, 3)
-    open(f"{job}.ready{k}", "w").close()
-    while not os.path.exists(job + ".go"):
-        time.sleep(0.001)
-    c0, t0 = time.thread_time(), time.time()
-    lengths = {w: chains(w) for w in range(k, W, D)}
-    t1 = time.time()
-    with open(f"{job}.out{k}", "wb") as f:
-        pickle.dump(dict(lengths=lengths, t0=t0, t1=t1, warm_s=warm_s,
-                         cpu_s=round(time.thread_time() - c0, 3)), f)
+def painter_threads(mesh, G_hap, bp_hap, mem_hap):
+    """Where a thread a card loses in the Painter (the design that
+    ``Painter(mesh=)`` had before its sweeps moved to the first card): the
+    stepping stones at N = 1024 with the targets cut into one block a card,
+    each block chained through every window on its card's replica
+    (``Painter.shards``) from a host thread of its own
+    (``parallel.mesh.per_card``), against all targets on the first card
+    from this thread. Each way timed on its second call; each thread's
+    seconds split into the host planner (``_prep``, ``_rows_of_sites``,
+    ``_extended_final_raw``) and the rest (the sweeps' launches and the
+    logscales' downloads). The slabs and logscales joined must equal one
+    card's bit for bit."""
+    import threading
+
+    from relate_tpu_torch.core import painting
+    from relate_tpu_torch.io import chunking
+    from relate_tpu_torch.io import haps as hio
+    from relate_tpu_torch.parallel import mesh as pm
+
+    L1, N1 = G_hap.shape
+    gmap = hio.GeneticMap(np.array([0.0, float(bp_hap[-1]) + 2e6]),
+                          np.array([0.0, (float(bp_hap[-1]) + 2e6) / 1e6]))
+    r = hio.rates_from_rpos(hio.interpolate_rpos(gmap, bp_hap))
+    bounds = np.asarray(chunking.plan_chunks_and_windows(
+        G_hap, mem_hap)[1][0].boundaries)
+    painter = painting.Painter(G_hap, r, painting.PaintingModel(
+        N=N1, theta=THETA), mesh=mesh)
+    bsb, bse = painter.window_boundary_sites(bounds)
+    W = len(bounds) - 1
+    parts = pm.blocks(N1, len(mesh))
+    spent = {}
+    lock = threading.Lock()
+    planners = ("_prep", "_rows_of_sites", "_extended_final_raw")
+    originals = {n: getattr(painting.Painter, n) for n in planners}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                key = (threading.get_ident(), name)
+                with lock:
+                    spent[key] = spent.get(key, 0.0) + time.perf_counter() - t
+        return run
+
+    def stones(k, dev, lo, hi):
+        t = time.perf_counter()
+        out = painter.shards[k]._stones(
+            bsb, bse, np.arange(lo, hi, dtype=np.int32), W)
+        torch.cuda.synchronize(dev)
+        return out, threading.get_ident(), time.perf_counter() - t
+
+    def one_card():
+        return [stones(0, mesh[0], 0, N1)]
+
+    def threaded():
+        return pm.per_card(mesh, lambda k, dev: stones(k, dev, *parts[k]),
+                           len(parts))
+
+    res = dict(N=N1, windows=W, blocks=parts)
+    for n in planners:
+        setattr(painting.Painter, n, timed(n, originals[n]))
+    try:
+        for way, fn in (("one_card", one_card), ("thread_a_card", threaded)):
+            fn()                                  # starts every card
+            spent.clear()
+            t0 = synced(mesh)
+            outs = fn()
+            wall = synced(mesh) - t0
+            res[way] = dict(s=round(wall, 4), threads=[
+                dict(s=round(s, 4), **{n.strip("_") + "_s": round(
+                    spent.get((ident, n), 0.0), 4) for n in planners})
+                for _, ident, s in outs])
+            for th in res[way]["threads"]:
+                th["rest_s"] = round(th["s"] - sum(
+                    th[n.strip("_") + "_s"] for n in planners), 4)
+            res[way + "_outs"] = [o for o, _, _ in outs]
+    finally:
+        for n, f in originals.items():
+            setattr(painting.Painter, n, f)
+    one = res.pop("one_card_outs")[0]
+    cut = res.pop("thread_a_card_outs")
+    equal = True
+    for i in range(4):
+        for w in range(W):
+            parts_w = [o[i][w] for o in cut]
+            if isinstance(one[i][w], torch.Tensor):
+                joined = torch.cat([p.to(one[i][w].device) for p in parts_w])
+                equal &= bool(torch.equal(joined, one[i][w]))
+            else:
+                equal &= bool(np.array_equal(np.concatenate(parts_w),
+                                             one[i][w]))
+    res["equal"] = equal
+    res["thread_a_card_over_one_card"] = round(
+        res["thread_a_card"]["s"] / res["one_card"]["s"], 3)
+    if not equal:
+        fail("mesh: the Painter's blocks on the cards differ from one card")
+    return res
 
 
 def synced(mesh):

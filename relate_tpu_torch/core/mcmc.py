@@ -43,12 +43,14 @@ What differs from the JAX module, on purpose:
 - PyTorch runs eagerly, so there is no compiled block to cache, no
   power-of-two batch bucket and no fused span of rounds: the convergence loop
   checks once per round, with ``conv.all()`` as its only download;
-- with a mesh (``run_mcmc(mesh=)``) the batch is cut into contiguous blocks
-  of chains, one a card, each driven by a thread of its own. Every card
-  draws the uniforms of the whole batch from the same seed and keeps its
-  rows (``Draws(rows=)``), the host coin is the same on every card, and the
-  batch stops when all of its chains have converged (``BatchVote``), so the
-  chains are those of one card.
+- ``run_mcmc(mesh=)`` runs the whole batch on the mesh's first card (the
+  JAX package cuts it over the devices): the chains are bound by the host's
+  launches, and a batch cut over four H100s, a host thread a card, took
+  10.5 to 13.6 times one card's time (PERF.md §5). Several cards serve whole
+  sections from a process each (``pipeline.relate.infer_branch_lengths``
+  with a ``parallel.pool.CardPool``). ``Draws(rows=)`` still lets a block
+  of a batch draw as the whole batch would (``parallel.mesh.
+  multichip_step``).
 
 Deliberate deviations from the reference, shared with the JAX module
 (distribution-level): the acceptance ratio of ``UpdateOneEvent`` includes
@@ -68,13 +70,12 @@ iteration.
 """
 from __future__ import annotations
 
-import threading
 from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..parallel.mesh import as_mesh, blocks, per_card
+from ..parallel.mesh import device_and_mesh
 from ..utils.devmem import resolve_device
 from ..utils.trace import note
 from .trees import Tree
@@ -1144,38 +1145,17 @@ def converged(st: ChainStatic, s: ChainState):
     return count_ok & node_ok[:, N:].all(dim=1)
 
 
-class BatchVote:
-    """The stopping rule of a chain batch cut into ``n`` blocks, each run by
-    a thread of its own: once a round every block says whether all of its
-    chains have converged, and every block gets the batch's verdict."""
-
-    def __init__(self, n: int):
-        self.done = [False] * n
-        self.barrier = threading.Barrier(n)
-
-    def __call__(self, k: int, done: bool) -> bool:
-        self.done[k] = done
-        self.barrier.wait()
-        verdict = all(self.done)
-        self.barrier.wait()      # no block votes again before all have read
-        return verdict
-
-    def abort(self):
-        self.barrier.abort()
-
-
 def run_to_convergence(st: ChainStatic, s: ChainState, draws: Draws,
                        transient_steps: int, block_steps: int,
                        max_rounds: int, use_vp: bool,
-                       use_ages: bool = False, all_done=None):
+                       use_ages: bool = False):
     """Transient, then rounds of ``block_steps`` until every tree has
     converged or ``max_rounds`` is reached; converged chains are frozen.
     ``transient_steps``/``block_steps`` are PROPOSAL budgets in the
     reference's units, converted to iterations through
     ``proposals_per_iteration`` (one proposal an iteration under the
     pairwise prior, ``st.F`` set). One ``conv.all()`` download per round.
-    ``all_done`` (a block of a batch): maps this block's ``conv.all()`` to
-    the batch's. Returns (state, rounds, conv)."""
+    Returns (state, rounds, conv)."""
     B, M = s.coords.shape
     use_pair = st.F is not None
     ppi = 1.0 if use_pair else proposals_per_iteration((M + 1) // 2, M)
@@ -1196,8 +1176,7 @@ def run_to_convergence(st: ChainStatic, s: ChainState, draws: Draws,
         s = advance(s, block_iters, True, ~conv)
         conv = conv | converged(st, s)
         rounds += 1
-        done = bool(conv.all())
-        if done if all_done is None else all_done(done):
+        if bool(conv.all()):
             break
     return s, rounds, conv
 
@@ -1368,19 +1347,17 @@ def run_mcmc(trees: List[Tree], dist: np.ndarray, L: int,
     (MCMCCoalRatesForRelate); ``rates`` is then not used. ``max_batch``
     bounds the chains advanced together (default ``chain_batch_cap``);
     larger batches run in parts with their own seeds. ``mesh``
-    (``parallel.mesh.Mesh``; ``device`` is then not used): each part's
-    chains are cut into contiguous blocks over the mesh's cards, one
-    thread a card, with the draws and the stopping rule of the whole part,
-    so the lengths are those of one card.
+    (``parallel.mesh.Mesh``, the JAX function's argument): every part runs
+    on the mesh's first card, which ``device`` may only repeat; cutting a
+    part over four H100s, a host thread a card, took 10.5 to 13.6 times
+    one card's time (PERF.md §5).
     Each part adds one dict (chains, nodes, rounds, chains converged) under
     ``mcmc`` to the record of the ``utils.trace`` stage it runs in. Every call makes its generators from ``seed`` and
     shares none, so calls on several threads give what they give alone.
     Returns branch lengths (B, M) in generations, float64."""
     if (group_R is None) != (memberships is None):
         raise ValueError("group_R and memberships go together")
-    mesh = as_mesh(mesh)
-    if mesh is None:
-        device = resolve_device(device)
+    device, _ = device_and_mesh(device, mesh)
     if max_batch is None:
         max_batch = chain_batch_cap(trees[0].num_nodes)
     if len(trees) > max_batch:
@@ -1391,31 +1368,13 @@ def run_mcmc(trees: List[Tree], dist: np.ndarray, L: int,
                 seed=seed + 7 * (s + 1), epochs=epochs, rates=rates,
                 sample_ages=sample_ages, group_R=group_R,
                 memberships=memberships, max_rounds=max_rounds,
-                max_batch=max_batch, device=device, mesh=mesh))
+                max_batch=max_batch, device=device))
         return np.concatenate(outs, axis=0)
     kw = dict(Ne=Ne, mu=mu, seed=seed, epochs=epochs, rates=rates,
               sample_ages=sample_ages, group_R=group_R,
               memberships=memberships, max_rounds=max_rounds)
     B = len(trees)
-    if mesh is None:
-        bl, rounds, conv = _run_chains(trees, dist, L, device=device, **kw)
-    else:
-        parts = blocks(B, len(mesh))
-        vote = BatchVote(len(parts))
-
-        def run(k, dev):
-            lo, hi = parts[k]
-            try:
-                return _run_chains(trees[lo:hi], dist, L, device=dev,
-                                   rows=(lo, hi, B),
-                                   all_done=lambda done: vote(k, done), **kw)
-            except BaseException:
-                vote.abort()        # the other blocks must not wait for k
-                raise
-        outs = per_card(mesh, run, len(parts))
-        bl = np.concatenate([o[0] for o in outs], axis=0)
-        rounds = max(o[1] for o in outs)
-        conv = sum(o[2] for o in outs)
+    bl, rounds, conv = _run_chains(trees, dist, L, device=device, **kw)
     note("mcmc", dict(chains=B, nodes=trees[0].num_nodes, rounds=rounds,
                       converged=conv))
     return bl
@@ -1423,12 +1382,9 @@ def run_mcmc(trees: List[Tree], dist: np.ndarray, L: int,
 
 def _run_chains(trees: List[Tree], dist: np.ndarray, L: int, Ne: float,
                 mu: float, seed: int, epochs, rates, sample_ages, group_R,
-                memberships, max_rounds: int, device, rows=None,
-                all_done=None):
-    """One batch of chains on ``device``: with ``rows`` (lo, hi, B) rows
-    lo:hi of a batch of B (see ``Draws``), with ``all_done`` the batch's
-    stopping rule (``run_to_convergence``). Returns (branch lengths,
-    rounds, chains converged)."""
+                memberships, max_rounds: int, device):
+    """One batch of chains on ``device``. Returns (branch lengths, rounds,
+    chains converged)."""
     B = len(trees)
     N = trees[0].N
     M = trees[0].num_nodes
@@ -1451,17 +1407,16 @@ def _run_chains(trees: List[Tree], dist: np.ndarray, L: int, Ne: float,
             coords0[b] = _initial_coords(sidx0[b], N, ages_n)
         state = init_chain_state(coords0, order0, sidx0, device)
     else:
-        tie = Draws(seed ^ 0x5BF03A7, device, rows).uniform(
-            B, M, high=0.99, batch_axis=0)
+        tie = Draws(seed ^ 0x5BF03A7, device).uniform(B, M, high=0.99)
         state, _ = device_init_state(st.parent, N, tie, st.depth)
-    draws = Draws(seed, device, rows)
+    draws = Draws(seed, device)
 
     # transient + PER-TREE convergence loop: converged chains freeze (their
     # state and running sums stop updating) while the rest continue
     block_steps = max(delta, 128)
     state, rounds, conv = run_to_convergence(
         st, state, draws, 50 * delta, block_steps, max_rounds, use_vp,
-        use_ages, all_done)
+        use_ages)
 
     # float64 host epilogue
     final_ssum = state.ssum.cpu().numpy().astype(np.float64)

@@ -28,12 +28,13 @@ Memory model: the full posterior of one window is materialised at once;
 windows are sized upstream so that it fits. Stepping-stone checkpoints
 between windows play the role of activation checkpointing.
 
-Several cards (``Painter(mesh=)``): the target axis is cut into contiguous
-blocks of ceil(N/D) targets, one a card of the mesh. Each card holds its own
-copy of the panel and runs the sweeps of its block on a host thread of its
-own, its logscale chain included; a target's sweeps do not depend on the
-other targets of its batch, so the joined checkpoints and posteriors equal
-the one-card Painter's bit for bit.
+Several cards (``Painter(mesh=)``): the sweeps run on the mesh's first
+card, as on one card, and each card of the mesh gets a one-card replica of
+the Painter (``shards``) for BuildTopology's sections on that card. Cutting
+the targets over the cards, a host thread a card, took 1.9 to 2.4 times
+one card's time on four H100s, the stepping stones alone 5 to 7 times
+(PERF.md §5): each card's thread plans every window (``_prep``, mostly
+small launches) and waits for the interpreter lock at each step.
 """
 from __future__ import annotations
 
@@ -45,7 +46,7 @@ import numpy as np
 import torch
 
 from ..ops import paint_kernels
-from ..parallel.mesh import blocks, device_and_mesh, gather, per_card
+from ..parallel.mesh import device_and_mesh
 from ..utils.devmem import device_memory_gb, resolve_device
 
 P_CAP = 0.99
@@ -320,10 +321,9 @@ class Painter:
     """Painting front end for one chunk: holds the genotype panel on the device,
     computes stepping-stone checkpoints per window and full posteriors.
 
-    With a ``mesh`` (``parallel.mesh.Mesh`` or a list of devices) the targets
-    are cut over its cards (``shards``, one one-card Painter a card, sharing
-    the host caches); results are joined on the mesh's first device, which
-    is ``device``."""
+    With a ``mesh`` (``parallel.mesh.Mesh`` or a list of devices) the sweeps
+    run on the mesh's first device, which is ``device``, and ``shards``
+    holds a one-card Painter a card of the mesh, sharing the host caches."""
 
     def __init__(self, G: np.ndarray, r: np.ndarray, model: PaintingModel,
                  device=None, mesh=None):
@@ -478,9 +478,7 @@ class Painter:
         checkpoint. Backward symmetric. The boundary slabs stay on the device
         between windows (each captured (B, N) slab feeds the next sweep
         directly); logscales are chained in float64 on the host. Same total
-        cost as the reference's full passes, single-window memory. With a
-        mesh each card chains its block of targets through every window on
-        its own thread, and each window's slabs are joined afterwards.
+        cost as the reference's full passes, single-window memory.
         """
         boundaries = np.asarray(boundaries)
         W = len(boundaries) - 1
@@ -496,22 +494,8 @@ class Painter:
         else:
             K_dev = W
 
-        if self.mesh is None:
-            a_sl, lsa0, b_sl, lsbW = self._stones(
-                bsb, bse, np.arange(N, dtype=np.int32), K_dev)
-        else:
-            parts = blocks(N, len(self.mesh))
-            outs = per_card(self.mesh, lambda k, _: self.shards[k]._stones(
-                bsb, bse, np.arange(*parts[k], dtype=np.int32), K_dev),
-                len(parts))
-
-            def join(i, w):
-                sl = [o[i][w] for o in outs]
-                if isinstance(sl[0], torch.Tensor):
-                    return gather(sl, self.device)
-                return np.concatenate(sl)
-            a_sl, lsa0, b_sl, lsbW = ([join(i, w) for w in range(W)]
-                                      for i in range(4))
+        a_sl, lsa0, b_sl, lsbW = self._stones(
+            bsb, bse, np.arange(N, dtype=np.int32), K_dev)
 
         def dev(x):
             return x if isinstance(x, torch.Tensor) else None
@@ -608,10 +592,7 @@ class Painter:
     def repaint(self, cp: Checkpoint,
                 targets: Optional[np.ndarray] = None) -> PaintOutput:
         """Full posterior over a window from its checkpoint
-        (RePaintSection equivalent): one forward and one backward sweep.
-        With a mesh each card sweeps its block of the targets and the
-        outputs are joined on the first device, the step axis padded to
-        the longest block as the one-card plan pads it."""
+        (RePaintSection equivalent): one forward and one backward sweep."""
         if targets is None:
             targets = np.arange(self.N, dtype=np.int32)
         targets = np.asarray(targets, dtype=np.int32)
@@ -623,31 +604,12 @@ class Painter:
         bse = cp.bse[targets] if np.ndim(cp.bse) else cp.bse
         bsb = np.broadcast_to(np.asarray(bsb, dtype=np.int64), targets.shape)
         bse = np.broadcast_to(np.asarray(bse, dtype=np.int64), targets.shape)
-        on_dev = (cp.a0_dev is not None and cp.be_dev is not None and all_t)
-
-        def slabs(lo, hi, device):
-            """Rows lo:hi of the checkpoint's slabs of ``targets`` on
-            ``device``."""
-            if on_dev:
-                return (cp.a0_dev[lo:hi].to(device),
-                        cp.be_dev[lo:hi].to(device))
-            rows = targets[lo:hi]
-            return (self._to_dev(cp.alpha[rows], device),
-                    self._to_dev(cp.beta[rows], device))
-
-        if self.mesh is None:
-            return self._repaint(targets, *slabs(0, len(targets),
-                                                 self.device),
-                                 bsb, bse, base)
-        parts = blocks(len(targets), len(self.mesh))
-
-        def run(k, device):
-            lo, hi = parts[k]
-            return self.shards[k]._repaint(
-                targets[lo:hi], *slabs(lo, hi, device), bsb[lo:hi],
-                bse[lo:hi], base[lo:hi])
-        return self._join(per_card(self.mesh, run, len(parts)), targets,
-                          base)
+        if cp.a0_dev is not None and cp.be_dev is not None and all_t:
+            a0, be = cp.a0_dev.to(self.device), cp.be_dev.to(self.device)
+        else:
+            a0 = self._to_dev(cp.alpha[targets])
+            be = self._to_dev(cp.beta[targets])
+        return self._repaint(targets, a0, be, bsb, bse, base)
 
     def _repaint(self, targets, a0, be, bsb, bse, base) -> PaintOutput:
         """The sweeps of one repaint on this Painter's device, from the
@@ -667,39 +629,3 @@ class Painter:
                           kmask=prep["kmask"])
         return PaintOutput(topology=topo, logscale=lstot,
                            ls_base=np.asarray(base, np.float64), plan=plan)
-
-    def _join(self, outs, targets, base) -> PaintOutput:
-        """The cards' PaintOutputs joined along the target axis on the first
-        device. Rows past a target's steps are zero in the posterior and
-        its logscale; in the plan they repeat the last site and allele and
-        carry no transition, as in a one-card plan of the longest target."""
-        Dmax = max(o.topology.shape[0] for o in outs)
-
-        def steps(t, fill_last):
-            """(B, d) plan tensor padded to Dmax columns."""
-            pad = Dmax - t.shape[1]
-            if not pad:
-                return t
-            tail = (t[:, -1:].expand(-1, pad) if fill_last
-                    else t.new_zeros((t.shape[0], pad)))
-            return torch.cat([t, tail], dim=1)
-
-        def rows(t):
-            """(d, B, ...) output padded with zero rows to Dmax."""
-            pad = Dmax - t.shape[0]
-            return t if not pad else torch.cat(
-                [t, t.new_zeros((pad,) + tuple(t.shape[1:]))], dim=0)
-
-        dev = self.device
-        plan = TargetPlan(
-            targets=targets,
-            idx=gather([steps(o.plan.idx, True) for o in outs], dev),
-            seqk=gather([steps(o.plan.seqk, True) for o in outs], dev),
-            pfac=gather([steps(o.plan.pfac, False) for o in outs], dev),
-            nxt=gather([steps(o.plan.nxt, False) for o in outs], dev),
-            D=np.concatenate([o.plan.D for o in outs]),
-            kmask=gather([o.plan.kmask for o in outs], dev))
-        return PaintOutput(
-            topology=gather([rows(o.topology) for o in outs], dev, dim=1),
-            logscale=gather([rows(o.logscale) for o in outs], dev, dim=1),
-            ls_base=np.asarray(base, np.float64), plan=plan)

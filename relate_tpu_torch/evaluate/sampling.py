@@ -93,7 +93,7 @@ def sample_branch_lengths(anc: AncesTree, muts: List[MutationRecord],
     took 5.878 s on one card, 6.399 s dealt to four cards from one thread
     and 33.149 s from a thread a card (NVIDIA H100 80GB HBM3, 700 W;
     ``chip_smoke.py --phases dealing``, ``sample_parts``). A process a
-    card is ROADMAP item 4b-ii.
+    card for the chain parts is ROADMAP item 4b-iii.
     Returns (num_samples, num_trees, 2N-1) branch lengths in generations."""
     device, _ = device_and_mesh(device, mesh)
     trees = [mt.tree for mt in anc.seq]

@@ -7,24 +7,25 @@ scripts/RelateParallel/RelateParallel.sh:231-396). Here a ``Mesh`` names
 the cards of one host, each once, and the work is cut along its
 independent axes:
 
-- **targets** (the haplotypes being painted): each card paints a contiguous
-  block of targets against its own copy of the panel
-  (``core.painting.Painter(mesh=)``);
 - **sections**: BuildTopology gives whole sections to the cards,
-  ``windows[k::D]`` to card k (``pipeline.relate``);
-- **trees** (the branch-length chains): a chain batch is cut into
-  contiguous blocks of chains (``core.mcmc.run_mcmc(mesh=)``);
-- the tools (``evaluate.coalrate``, ``evaluate.sampling``) take a mesh
-  and run on its first card: their launch-bound loops gained nothing from
-  more cards driven by one process;
+  ``windows[k::D]`` to card k, each card driven by a host thread of its own
+  (``per_card``) that has entered its card before it allocates or launches;
+  InferBranchLengths gives whole sections to a pool of one process a card
+  (``parallel.pool.CardPool``; ``pipeline.relate``): its chains are bound by
+  the host's launches, which threads of one process issue in turn;
 - **reductions**: each card sums its shard and the sums are added onto the
-  first card in mesh order (``reduce_sum``, ``coalescence_counts_psum``).
+  first card in mesh order (``reduce_sum``, ``coalescence_counts_psum``);
+- the JAX package's cuts of the targets and of a chain batch stay as its
+  twins here (``make_sharded_paint_fn``, ``shard_batch``, ``multichip_step``,
+  ``dryrun``), while the entry points that take a mesh run those on its
+  first card: ``core.painting.Painter(mesh=)`` (the sweeps; its ``shards``
+  are the sections' replicas), ``core.mcmc.run_mcmc(mesh=)`` and the tools
+  (``evaluate.coalrate``, ``evaluate.sampling``). None of them gained on
+  four cards driven from one process (PERF.md §5).
 
-The targets, sections and chain blocks are driven by a host thread a card
-(``per_card``), which has entered its card before it allocates or
-launches. A CUDA device appears at most once in a mesh; ``"cpu"`` may
-repeat, so that the tests run 2, 3 or 8 shards on the host (the JAX
-package's tests use 8 virtual CPU devices for this).
+A CUDA device appears at most once in a mesh; ``"cpu"`` may repeat, so that
+the tests run 2, 3 or 8 shards on the host (the JAX package's tests use 8
+virtual CPU devices for this).
 
 Sharding rule of ``shard_batch``: a ``ChainStatic``/``ChainState`` mixes
 batch-leading (B, ...) tensors with per-tree constants (``kc2_pos`` (M,),

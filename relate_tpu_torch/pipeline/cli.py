@@ -22,7 +22,8 @@ The stages run on the CUDA card; ``--device cpu`` asks for the host.
 ``--devices N`` runs the modes All, Paint, BuildTopology and
 InferBranchLengths on the first N cards of the host
 (``parallel.mesh.default_mesh``; it raises if fewer are visible, and it
-does not go with ``--device``). ``--num_hosts H --host_id k`` runs ``--mode
+does not go with ``--device``); InferBranchLengths then runs one process a
+card (``parallel.pool.CardPool``). ``--num_hosts H --host_id k`` runs ``--mode
 All`` as host k of H on one shared store (the same command on every host,
 each with its own cards): host 0 plans the chunks and finalizes, chunk c
 runs on host c mod H, and a host that waits longer than

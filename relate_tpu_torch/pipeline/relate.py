@@ -17,14 +17,15 @@ reads from the environment is a function argument here, with its default.
 PostProcess (``post_process_chunk``, ``run_all(postprocess=True)``) and
 OptimizeParameters (``optimize_parameters``) run here too.
 
-Several cards of one host (``mesh=``, a ``parallel.mesh.Mesh``): Paint cuts
-the targets over the cards (``Painter(mesh=)``); BuildTopology gives whole
-sections to the cards, ``windows[k::D]`` to card k, each card driven by a
-host thread of its own with its own replica of the panel. A section keeps
-its own seed wherever it runs, so the artifacts are those of one card byte
-for byte. FindEquivalentBranches, InferBranchLengths, CombineSections,
-Finalize and PostProcess run on the first card. Not ported yet:
-InferBranchLengths on several cards (ROADMAP item 4b-ii).
+Several cards of one host (``mesh=``, a ``parallel.mesh.Mesh``):
+BuildTopology gives whole sections to the cards, ``windows[k::D]`` to card
+k, each card driven by a host thread of its own with its own replica of the
+panel; InferBranchLengths gives whole sections to a pool of one process a
+card (``parallel.pool.CardPool``, which ``run_all`` starts as it begins and
+closes as it ends), the longest first. A section keeps its own seed wherever
+it runs, so the artifacts are those of one card byte for byte. Paint
+(``Painter(mesh=)``), FindEquivalentBranches, CombineSections, Finalize and
+PostProcess run on the first card.
 
 Several hosts (``run_all(num_hosts=, host_id=)``, the CLI's ``--num_hosts``
 and ``--host_id``): one process a host, each with its own card or mesh, all
@@ -58,8 +59,9 @@ from ..io import ancmut, chunking
 from ..io import haps as hio
 from ..io.chunking import ArtifactStore, MERGE_DISCARD
 from ..parallel.mesh import device_and_mesh, per_card
+from ..parallel.pool import HERE, CardPool
 from ..utils.devmem import resolve_device
-from ..utils.trace import stage, summary
+from ..utils.trace import open_record, stage, summary
 from .postprocess import post_process
 
 # from this many windows on, FindEquivalentBranches streams a chunk window by
@@ -374,18 +376,32 @@ def infer_branch_lengths(store: ArtifactStore, c: int, Ne: float = 3e4,
                          first_section: int = 0,
                          last_section: Optional[int] = None,
                          cache: Optional[dict] = None, device=None,
-                         mesh=None):
+                         mesh=None, pool: Optional[CardPool] = None):
     """Branch-length MCMC per section (pipeline/InferBranchLengths.cpp);
-    the trees of a section are one batch of chains on ``device``. With a
-    ``mesh`` the stage runs on its first card: the stage is bound by the
-    host's launches, and whole sections on the cards, a host thread each,
-    took 4.8 to 5.5 times one card's time on four H100s (PERF.md; ROADMAP
-    item 4b).
+    the trees of a section are one batch of chains on ``device``.
+
+    With a ``pool`` (``parallel.pool.CardPool``), or a ``mesh`` of more
+    than one device (a pool of its own for this call), whole sections go to
+    the pool's workers, one process a card, the longest sections first:
+    each worker reads ``trees_<w>.anc``, runs its chains and writes the
+    file back; the lengths come back to update ``cache``. The stage is
+    bound by the host's launches, which one process issues for one card at
+    a time (PERF.md §5). A section keeps its seed wherever it runs, so the
+    files are those of one card byte for byte. The stage record gets each
+    section's ``mcmc`` note in window order and the pool's ``pool_start_s``
+    (seconds until each worker was ready, in mesh order).
 
     With a coalescence-rate prior, epochs (generations) and rates
     (per-generation) are normalized by the implied average Ne = 1/mean(rate)
     into coalescent units (InferBranchLengths.cpp:86-152)."""
-    device, _ = device_and_mesh(device, mesh)
+    device, mesh = device_and_mesh(
+        device, pool.mesh if pool is not None and mesh is None else mesh)
+    if pool is None and mesh is not None and len(mesh) > 1:
+        with CardPool(mesh) as pool:
+            return infer_branch_lengths(
+                store, c, Ne=Ne, mu=mu, seed=seed, epochs=epochs, rates=rates,
+                first_section=first_section, last_section=last_section,
+                cache=cache, device=device, mesh=mesh, pool=pool)
     ch = store.load_chunk(c)
     W = ch.windows.num_windows
     if last_section is None:
@@ -398,35 +414,78 @@ def infer_branch_lengths(store: ArtifactStore, c: int, Ne: float = 3e4,
         rates = rts * avg_ne
         epochs = np.asarray(epochs, dtype=np.float64) / avg_ne
     ages = store.load_sample_ages(ch.N)
-    # overlap the per-section .anc reads/writes with the chain batches of
-    # neighbouring sections
     windows = list(range(first_section, last_section + 1))
     dist64 = ch.dist.astype(np.float64)
 
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        read_futs = {w: pool.submit(_read_section, store, c, w, cache)
+    def seed_of(w):
+        return seed + 7919 * (c + 1) + w
+
+    if pool is not None:
+        rec = open_record()
+        if rec is not None:
+            rec["pool_start_s"] = pool.start_s()
+        # FindEquivalentBranches has written every trees_<w>.anc by now (its
+        # writes end before it returns); each is then written by one worker
+        bounds = np.append(ch.windows.boundaries[:W], ch.L)
+        jobs = [(store.path(f"chunk_{c}", f"trees_{w}.anc"), dist64, ch.L, Ne,
+                 mu, seed_of(w), epochs, rates, ages, HERE) for w in windows]
+        longest = sorted(range(len(windows)),
+                         key=lambda i: bounds[windows[i]]
+                         - bounds[windows[i] + 1])
+        lengths = pool.map(section_branch_lengths, jobs, order=longest)
+        if cache is not None:
+            for w, bl in zip(windows, lengths):
+                if ("anc", c, w) in cache:
+                    _set_lengths(cache[("anc", c, w)], bl)
+        return
+
+    # overlap the per-section .anc reads/writes with the chain batches of
+    # neighbouring sections
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        read_futs = {w: ex.submit(_read_section, store, c, w, cache)
                      for w in windows[:2]}
         write_futs = []
         for i, w in enumerate(windows):
             anc = read_futs.pop(w).result()
             if i + 2 < len(windows):
                 nxt = windows[i + 2]
-                read_futs[nxt] = pool.submit(_read_section, store, c, nxt,
-                                             cache)
-            trees = [mt.tree for mt in anc.seq]
-            bl = mcmc.run_mcmc(trees, dist64, ch.L, Ne=Ne, mu=mu,
-                               seed=seed + 7919 * (c + 1) + w,
-                               epochs=epochs, rates=rates, sample_ages=ages,
-                               device=device)
-            for k, mt in enumerate(anc.seq):
-                mt.tree.branch_length = bl[k]
+                read_futs[nxt] = ex.submit(_read_section, store, c, nxt,
+                                           cache)
+            _set_lengths(anc, _chains(anc, dist64, ch.L, Ne, mu, seed_of(w),
+                                      epochs, rates, ages, device))
             if cache is not None:
                 cache[("anc", c, w)] = anc
-            write_futs.append(pool.submit(
+            write_futs.append(ex.submit(
                 ancmut.write_anc_bin,
                 store.path(f"chunk_{c}", f"trees_{w}.anc"), anc))
         for f in write_futs:
             f.result()
+
+
+def _chains(anc: AncesTree, dist, L, Ne, mu, seed, epochs, rates, ages,
+            device) -> np.ndarray:
+    """The (trees, nodes) branch lengths of one section's chains."""
+    return mcmc.run_mcmc([mt.tree for mt in anc.seq], dist, L, Ne=Ne, mu=mu,
+                         seed=seed, epochs=epochs, rates=rates,
+                         sample_ages=ages, device=device)
+
+
+def _set_lengths(anc: AncesTree, bl: np.ndarray) -> None:
+    for k, mt in enumerate(anc.seq):
+        mt.tree.branch_length = bl[k]
+
+
+def section_branch_lengths(path: str, dist, L, Ne, mu, seed, epochs, rates,
+                           ages, device) -> np.ndarray:
+    """InferBranchLengths of one section as a task of a
+    ``parallel.pool.CardPool`` worker: reads the section's ``.anc`` at
+    ``path``, runs its chains on ``device`` and writes the file with their
+    lengths. Returns the (trees, nodes) lengths."""
+    anc = ancmut.read_anc_bin(path)
+    bl = _chains(anc, dist, L, Ne, mu, seed, epochs, rates, ages, device)
+    _set_lengths(anc, bl)
+    ancmut.write_anc_bin(path, anc)
+    return bl
 
 
 def combine_sections(store: ArtifactStore, c: int,
@@ -615,11 +674,15 @@ def run_all(haps_path: str, sample_path: str, map_path: str, output: str,
             barrier_timeout_s: float = 86400.0):
     """Relate --mode All (pipeline/Relate.cpp:257-287) on ``device`` (None:
     the CUDA card), or on the cards of ``mesh`` (``parallel.mesh.Mesh``,
-    e.g. ``default_mesh(4)``): Paint cuts the targets over them,
-    BuildTopology gives them whole sections, and the other stages run on
-    the first card. The ``.anc``/``.mut`` are those of ``device=mesh[0]``
-    byte for byte, also with ``threads``. Each stage record gives the peak
-    memory of every card of the mesh (``dev_peak_mb_by_card``); with
+    e.g. ``default_mesh(4)``): BuildTopology gives them whole sections, a
+    host thread a card, InferBranchLengths whole sections, a process a card
+    (a ``parallel.pool.CardPool`` of the mesh, started here so that its
+    workers' start overlaps the earlier stages, and closed on the way out,
+    also after a failure), and the other stages run on the first card. The
+    ``.anc``/``.mut`` are those of ``device=mesh[0]`` byte for byte, also
+    with ``threads`` (the chunks' threads share the pool, one stage at a
+    time). Each stage record gives the peak memory of every card of the
+    mesh (``dev_peak_mb_by_card``, with the pool workers'); with
     ``threads`` > 1 the chunks' stages overlap and share the cards' peak
     counters (each stage resets them), so a record's peaks are not its
     stage's alone.
@@ -651,111 +714,123 @@ def run_all(haps_path: str, sample_path: str, map_path: str, output: str,
     device, mesh = device_and_mesh(device, mesh)
     if not 0 <= host_id < num_hosts:
         raise ValueError(f"host_id {host_id} is not in [0, {num_hosts})")
-    store = ArtifactStore(output + ".tmpdir")
-    if host_id == 0:
-        plan = make_chunks(haps_path, sample_path, map_path, store.outdir,
-                           memory_gb, dist_path, use_transitions,
-                           sample_ages_path, device=device)
-    else:
-        # plan.json is written atomically and last: once it is there, so
-        # is every chunk's input
-        _wait_for(lambda: os.path.exists(store.path("plan.json")),
-                  barrier_timeout_s,
-                  f"host {host_id}: {store.path('plan.json')} did not appear "
-                  f"within {barrier_timeout_s} s: did host 0 fail?")
-        plan = store.load_plan()[0]
-    if verbose:
-        print(f"[relate] N={plan.N} L={plan.L} chunks={plan.num_chunks}")
-    epochs = rates = None
-    if coal is not None:
-        epochs, rates = coal
-
-    # run-level handoff for Finalize's combined-artifact reads, bounded:
-    # only kept for small chunk counts (each entry holds a whole chunk's
-    # trees in memory; with many chunks finalize re-reads)
-    fin_cache: Optional[dict] = {} if plan.num_chunks <= 2 else None
-    _, wplans_all = store.load_plan()
-
-    def _process_chunk(c: int):
-        # in-memory stage handoff: every artifact is still written (the
-        # resume model is unchanged) but the next stage skips re-reading
-        # what the previous stage just produced in this process. Long
-        # chunks skip the handoff so that peak memory stays bounded at about
-        # two windows (FindEquivalentBranches then streams).
-        W_c = wplans_all[c].num_windows
-        if W_c >= stream_windows:
-            cache = None
+    # with several devices the chains run one process a card
+    # (infer_branch_lengths); the workers start now, behind MakeChunks,
+    # Paint and BuildTopology
+    pool = CardPool(mesh) if mesh is not None and len(mesh) > 1 else None
+    try:
+        store = ArtifactStore(output + ".tmpdir")
+        if host_id == 0:
+            plan = make_chunks(haps_path, sample_path, map_path, store.outdir,
+                               memory_gb, dist_path, use_transitions,
+                               sample_ages_path, device=device)
         else:
-            cache = {} if fin_cache is None else fin_cache
-        # the paint -> build checkpoint handoff has its own bound: re-reading
-        # and re-uploading a 2 x (N, N) checkpoint per section is costly at
-        # large N, and the streaming threshold should not disable it
-        paint_cache = cache
-        if cache is None and 2 * 4 * plan.N * plan.N * W_c <= cp_handoff_bytes:
-            paint_cache = {}
-        with stage(f"chunk{c}.paint", verbose, mesh):
-            paint(store, c, theta, rho_scale=rho_scale, cache=paint_cache,
-                  device=device, mesh=mesh)
-        with stage(f"chunk{c}.build_topology", verbose, mesh):
-            build_topology(store, c, seed=seed, theta=theta,
-                           rho_scale=rho_scale, cache=paint_cache,
-                           device=device, mesh=mesh)
-        if paint_cache is not None and cache is None:
-            paint_cache.clear()
-        with stage(f"chunk{c}.find_equivalent_branches", verbose, mesh):
-            find_equivalent_branches(store, c, cache=cache,
-                                     stream_windows=stream_windows,
-                                     device=device)
-        if postprocess:
-            # post_process_chunk works on the files: this chunk's trees and
-            # records in the handoff are stale after it, and the second
-            # FindEquivalentBranches reads its output from the files
-            if cache is not None:
-                for k in [k for k in cache if k[0] in ("anc", "muts")
-                          and k[1] == c]:
-                    del cache[k]
-            with stage(f"chunk{c}.post_process", verbose, mesh):
-                post_process_chunk(store, c, seed=seed, device=device)
-            with stage(f"chunk{c}.find_equivalent_branches.post", verbose,
-                       mesh):
+            # plan.json is written atomically and last: once it is there, so
+            # is every chunk's input
+            _wait_for(lambda: os.path.exists(store.path("plan.json")),
+                      barrier_timeout_s,
+                      f"host {host_id}: {store.path('plan.json')} did not "
+                      f"appear within {barrier_timeout_s} s: did host 0 "
+                      "fail?")
+            plan = store.load_plan()[0]
+        if verbose:
+            print(f"[relate] N={plan.N} L={plan.L} chunks={plan.num_chunks}")
+        epochs = rates = None
+        if coal is not None:
+            epochs, rates = coal
+
+        # run-level handoff for Finalize's combined-artifact reads, bounded:
+        # only kept for small chunk counts (each entry holds a whole chunk's
+        # trees in memory; with many chunks finalize re-reads)
+        fin_cache: Optional[dict] = {} if plan.num_chunks <= 2 else None
+        _, wplans_all = store.load_plan()
+
+        def _process_chunk(c: int):
+            # in-memory stage handoff: every artifact is still written (the
+            # resume model is unchanged) but the next stage skips re-reading
+            # what the previous stage just produced in this process. Long
+            # chunks skip the handoff so that peak memory stays bounded at
+            # about two windows (FindEquivalentBranches then streams).
+            W_c = wplans_all[c].num_windows
+            if W_c >= stream_windows:
+                cache = None
+            else:
+                cache = {} if fin_cache is None else fin_cache
+            # the paint -> build checkpoint handoff has its own bound:
+            # re-reading and re-uploading a 2 x (N, N) checkpoint per section
+            # is costly at large N, and the streaming threshold should not
+            # disable it
+            paint_cache = cache
+            if (cache is None
+                    and 2 * 4 * plan.N * plan.N * W_c <= cp_handoff_bytes):
+                paint_cache = {}
+            with stage(f"chunk{c}.paint", verbose, mesh):
+                paint(store, c, theta, rho_scale=rho_scale, cache=paint_cache,
+                      device=device, mesh=mesh)
+            with stage(f"chunk{c}.build_topology", verbose, mesh):
+                build_topology(store, c, seed=seed, theta=theta,
+                               rho_scale=rho_scale, cache=paint_cache,
+                               device=device, mesh=mesh)
+            if paint_cache is not None and cache is None:
+                paint_cache.clear()
+            with stage(f"chunk{c}.find_equivalent_branches", verbose, mesh):
                 find_equivalent_branches(store, c, cache=cache,
                                          stream_windows=stream_windows,
                                          device=device)
-        with stage(f"chunk{c}.infer_branch_lengths", verbose, mesh):
-            infer_branch_lengths(store, c, Ne=Ne, mu=mu, seed=seed,
-                                 epochs=epochs, rates=rates, cache=cache,
-                                 device=device, mesh=mesh)
-        with stage(f"chunk{c}.combine_sections", verbose, mesh):
-            combine_sections(store, c, cache=cache)
+            if postprocess:
+                # post_process_chunk works on the files: this chunk's trees and
+                # records in the handoff are stale after it, and the second
+                # FindEquivalentBranches reads its output from the files
+                if cache is not None:
+                    for k in [k for k in cache if k[0] in ("anc", "muts")
+                              and k[1] == c]:
+                        del cache[k]
+                with stage(f"chunk{c}.post_process", verbose, mesh):
+                    post_process_chunk(store, c, seed=seed, device=device)
+                with stage(f"chunk{c}.find_equivalent_branches.post", verbose,
+                           mesh):
+                    find_equivalent_branches(store, c, cache=cache,
+                                             stream_windows=stream_windows,
+                                             device=device)
+            with stage(f"chunk{c}.infer_branch_lengths", verbose, mesh):
+                infer_branch_lengths(store, c, Ne=Ne, mu=mu, seed=seed,
+                                     epochs=epochs, rates=rates, cache=cache,
+                                     device=device, mesh=mesh, pool=pool)
+            with stage(f"chunk{c}.combine_sections", verbose, mesh):
+                combine_sections(store, c, cache=cache)
 
-    chunks = [c for c in range(plan.num_chunks) if c % num_hosts == host_id]
-    if threads > 1 and len(chunks) > 1:
-        with ThreadPoolExecutor(max_workers=threads) as ex:
-            for _ in ex.map(_process_chunk, chunks):
-                pass
-    else:
-        for c in chunks:
-            _process_chunk(c)
-    if num_hosts > 1:
-        # DONE is written after both combined artifacts are in place, so a
-        # host never reads half a chunk
-        def all_done():
-            return ((host_id != 0 and os.path.exists(output + ".anc"))
-                    or all(os.path.exists(store.path(f"chunk_{c}", "DONE"))
-                           for c in range(plan.num_chunks)))
-        _wait_for(all_done, barrier_timeout_s,
-                  f"host {host_id}: not every chunk's DONE appeared within "
-                  f"{barrier_timeout_s} s: did a host fail?")
-        if host_id != 0:
-            return output
-    with stage("finalize", verbose, mesh):
-        nnm, nfl = finalize(store, output, cleanup=cleanup,
-                            annot_path=annot_path, cache=fin_cache)
-    if verbose:
-        print(f"[relate] Number of not mapping SNPs: {nnm}")
-        print(f"[relate] Number of flipped SNPs    : {nfl}")
-        summary()
-    return output
+        chunks = [c for c in range(plan.num_chunks)
+                  if c % num_hosts == host_id]
+        if threads > 1 and len(chunks) > 1:
+            with ThreadPoolExecutor(max_workers=threads) as ex:
+                for _ in ex.map(_process_chunk, chunks):
+                    pass
+        else:
+            for c in chunks:
+                _process_chunk(c)
+        if num_hosts > 1:
+            # DONE is written after both combined artifacts are in place, so a
+            # host never reads half a chunk
+            def all_done():
+                return ((host_id != 0 and os.path.exists(output + ".anc"))
+                        or all(os.path.exists(store.path(f"chunk_{c}", "DONE"))
+                               for c in range(plan.num_chunks)))
+            _wait_for(all_done, barrier_timeout_s,
+                      f"host {host_id}: not every chunk's DONE appeared "
+                      f"within {barrier_timeout_s} s: did a host fail?")
+            if host_id != 0:
+                return output
+        with stage("finalize", verbose, mesh):
+            nnm, nfl = finalize(store, output, cleanup=cleanup,
+                                annot_path=annot_path, cache=fin_cache)
+        if verbose:
+            print(f"[relate] Number of not mapping SNPs: {nnm}")
+            print(f"[relate] Number of flipped SNPs    : {nfl}")
+            summary()
+        return output
+    finally:
+        if pool is not None:
+            pool.close()
 
 
 def _wait_for(ready, timeout_s: float, what: str, poll_s: float = 0.2):

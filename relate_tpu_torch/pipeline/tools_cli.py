@@ -52,7 +52,7 @@ the host (``parallel.mesh.default_mesh``, which raises if fewer are
 visible), for parity with the JAX package's flag: the work runs on the
 first of them, since more cards driven from one process were no faster
 (``evaluate.sampling.sample_branch_lengths``; a process a card is ROADMAP
-item 4b-ii), and the files are those of one card. It does not go with
+item 4b-iii), and the files are those of one card. It does not go with
 ``--device`` nor with another tool or mode. ``Relate --mode All --devices
 N`` is ``pipeline/cli.py``'s.
 """

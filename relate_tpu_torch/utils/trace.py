@@ -16,7 +16,9 @@ per-stage summary table (and tests can assert on it). Code that runs inside a
 stage can add to its record with ``note`` (the MCMC's rounds to convergence,
 for one), also from a worker thread that entered the stage's record with
 ``within``. With ``devices`` (the cards of a mesh) a record gives the peak
-memory of each of them under ``dev_peak_mb_by_card``.
+memory of each of them under ``dev_peak_mb_by_card``; a worker process of
+``parallel.pool.CardPool`` adds its card's peak there (``peak``), and the
+record keeps the larger figure a card.
 """
 from __future__ import annotations
 
@@ -39,6 +41,13 @@ def note(key: str, item) -> None:
     stack = getattr(_OPEN, "stack", None)
     if stack:
         stack[-1].setdefault(key, []).append(item)
+
+
+def peak(rec: dict, card: str, mb: float) -> None:
+    """Raise ``rec``'s peak device memory of ``card`` to ``mb`` (MB) if it
+    is lower (the peak of another process on that card)."""
+    by = rec.setdefault("dev_peak_mb_by_card", {})
+    by[card] = max(by.get(card, 0.0), mb)
 
 
 def open_record() -> Optional[dict]:
@@ -122,10 +131,8 @@ def stage(name: str, verbose: bool = True,
     dev = _device_mem_bytes()
     if dev is not None:
         rec["dev_peak_mb"] = round(dev / 1e6, 1)
-    if cards:
-        rec["dev_peak_mb_by_card"] = {
-            str(d): round(torch.cuda.max_memory_allocated(d) / 1e6, 1)
-            for d in cards}
+    for d in cards:
+        peak(rec, str(d), round(torch.cuda.max_memory_allocated(d) / 1e6, 1))
     STAGES.append(rec)
     if verbose:
         msg = (f"[trace] {name}: wall {rec['wall_s']}s "

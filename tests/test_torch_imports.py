@@ -45,7 +45,7 @@ def test_every_module_imports_without_jax():
                 "pipeline.tools_cli", "io.extract", "evaluate.selection",
                 "evaluate.mutrate", "io.kastore", "io.fileformats",
                 "io.importers", "io.treeview", "io.native", "io.refpaint",
-                "core.tree_comparer", "parallel.mesh"):
+                "core.tree_comparer", "parallel.mesh", "parallel.pool"):
         assert "relate_tpu_torch." + new in names
     code = (
         "import importlib, sys\n"
@@ -67,6 +67,24 @@ def test_every_module_imports_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "imported" in out.stdout
+
+
+def test_pool_workers_import_no_jax():
+    """A ``CardPool`` worker (spawned: a fresh interpreter) imports the
+    port and torch and no JAX, though this test process has imported the
+    JAX package; on a ``"cpu"`` entry it runs one thread."""
+    import relate_tpu  # noqa: F401 - in this process, not in the workers
+    from relate_tpu_torch.parallel.pool import CardPool
+    probe = ("sorted(m for m in __import__('sys').modules if m.split('.')[0]"
+             " in ('jax', 'jaxlib', 'relate_tpu', 'triton',"
+             " 'relate_tpu_torch', 'torch'))")
+    with CardPool(["cpu"] * 2, timeout_s=300) as pool:
+        seen = pool.map(eval, [(probe,), (probe,)], order=[1, 0])
+        threads = pool.map(eval, [("__import__('torch').get_num_threads()",)])
+    for mods in seen:
+        tops = {m.split(".")[0] for m in mods}
+        assert tops == {"relate_tpu_torch", "torch"}, tops
+    assert threads == [1]
 
 
 def _imports_of(path):
