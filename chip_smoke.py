@@ -36,7 +36,7 @@ CLI and checks what they wrote:
   ``.mut`` of ``run_all`` at N = 2048: EstimatePopulationSize with two
   groups and with ``--poplabels hap`` (a rate for each of the 2048 x 2048
   haplotype pairs), EstimatePopulationSizeEM (2 iterations),
-  SampleBranchLengths (``.timeb``, 3 samples); and ReEstimateBranchLengths
+  SampleBranchLengths (``.timeb``, 2 samples); and ReEstimateBranchLengths
   under the pairwise group prior on the output of a ``run_all`` of its own
   at N = 512 and L = 4096 (one proposal an iteration: at N = 2048 its
   chains take 430.8 s even replayed as CUDA graphs);
@@ -57,16 +57,23 @@ CLI and checks what they wrote:
   on ``cuda:0`` on a one-card host) and in this process on the first
   card, each writing the same section files, ``run_mcmc(mesh=)`` on 9
   trees, ``coalescence_counts_psum`` and ``dryrun``; the CoalescentRate
-  tool on the ``run_all`` output at N = 2048 through ``--devices`` beside
-  one card
-  (EstimatePopulationSize with two groups, EstimatePopulationSizeEM, one
-  iteration, SampleBranchLengths, 2 samples: the files equal byte for byte)
-  and ``coalescence_stats`` in batches of 8 trees; with more than one card
-  also ``reduce_sum`` beside ``torch.cuda.comm.reduce_add``, the chains'
-  parts from one thread beside a thread a card, InferBranchLengths' chains
-  dealt to the cards from one thread, and the Painter's stepping stones cut
-  over the cards a thread a card with the host planner's share of each
-  thread;
+  tool through ``--devices`` beside one card: EstimatePopulationSize with
+  two groups on the ``run_all`` output at N = 2048, and
+  EstimatePopulationSizeEM (one iteration) and SampleBranchLengths (one
+  sample) on that output repeated along the chromosome to 305 trees, two
+  chain parts, which go to a pool of one process a card (the files equal
+  byte for byte); ``sample_branch_lengths`` on four parts of 256 chains
+  through the phase's pool beside one card (one worker on ``cuda:0`` on a
+  one-card host); with more than one card also ``reduce_sum`` beside
+  ``torch.cuda.comm.reduce_add``, the chains' parts dealt from one thread,
+  ``coalescence_stats``' batches dealt from one thread and from a thread a
+  card, InferBranchLengths' chains dealt to the cards from one thread, and
+  the Painter's stepping stones cut over the cards a thread a card with
+  the host planner's share of each thread;
+- BuildTopology of the bundled example (``tests/golden``, N = 8, the C++
+  reference's chunk 0) over its first 12,000 SNPs on the card, through the
+  merge scan with clade rows, against the reference's own trees with the
+  bounds of ``tests/test_torch_golden.py``;
 - ``--mode All`` on two hosts at N = 2048 and L = 4096: two processes of
   the port's CLI (``--num_hosts 2 --host_id k``) on one store, with chunk
   constants that plan the panel as two chunks, whose files must equal one
@@ -101,10 +108,15 @@ ms a tree on both, the tails of 50,000 SNPs on the card, the device peak;
 the card against the CPU), ``mesh`` (the cards, the Painter's and each
 stage's time with the mesh beside one card's, the launches by card, each
 card's peak memory, the pool's start by worker and InferBranchLengths
-through it beside one card; ``--phases mesh`` runs the one-card ``run_all`` it
+through it beside one card, the tools' chain parts through pools beside
+one card; ``--phases mesh`` runs the one-card ``run_all`` it
 compares with, and on a host with four cards uses all four),
 ``dealing`` (not run by default; more than one card: the one-card
-``run_all`` and then only the mesh phase's ``mesh_dealing``),
+``run_all`` and then only the mesh phase's ``mesh_dealing``: the chain
+parts on one card, dealt from one thread and through a pool of every
+card, and the statistics' batches dealt),
+``golden`` (the example's trees and clade agreement against the
+reference's, the launches, seconds),
 ``interchange`` (each step's wall seconds, the
 flipped, dropped and masked SNPs, the launches of ``--mode All``),
 ``hosts`` (each process's chunks, launches by kernel and seconds, the
@@ -192,16 +204,22 @@ TIME_BUDGET_S = 560.0          # further sections are built while under this
 SMALLER_MEMORY_GB = 1.25       # gives the N = 1024 panel 3 windows (about 2,900 SNPs)
 OPT_MAX_SNPS = 150             # OptimizeParameters: SNPs 0 ... 150 of section 0
 EM_ITERS = 2                   # EstimatePopulationSizeEM (its default is 10)
-SBL_SAMPLES = 3                # SampleBranchLengths --num_samples
+SBL_SAMPLES = 2                # SampleBranchLengths --num_samples
 N_PAIR = 512                   # ReEstimateBranchLengths under the pair
 L_SNPS_PAIR = 4096             # prior: a run_all of its own (at N = 2048
 PAIR_MEMORY_GB = 0.25          # its chains take minutes; PERF.md), 3 windows
 HAP_ROWS_CHECKED = 64          # rows of the --poplabels hap .pairwise.coal read back
 CHROMOSOME_SNPS = 50_000       # log_pvalue_batch alone: the tails of this many SNPs
 MESH_EM_ITERS = 1              # the mesh phase's EstimatePopulationSizeEM
-MESH_SBL_SAMPLES = 2           # and SampleBranchLengths --num_samples
+MESH_SBL_SAMPLES = 1           # and SampleBranchLengths --num_samples
 MESH_STATS_BATCH = 8           # coalescence_stats in batches of this many trees
 PARTS_PROPOSALS = 10_000       # sample_branch_lengths in parts: proposals a sample
+SAMPLE_PARTS = 4               # and parts of chain_batch_cap chains
+MESH_STORE_COPIES = 5          # the N = 2048 output repeated: 305 trees, two
+                               # chain parts (one after the EM's filter)
+GOLDEN_SNPS = 12_000           # BuildTopology of the golden chunk: its first
+                               # SNPs
+GOLDEN_MARGIN = 500            # trees straddling the cut are not compared
 L_SNPS_HOSTS = 4096            # the hosts phase: the first SNPs of the N = 2048
 HOSTS_MEMORY_GB = 2.0          # panel, which with these chunk constants plans
 HOSTS_CHUNKING = dict(OVERLAP=500, MERGE_DISCARD=250,    # as 2 chunks
@@ -1263,6 +1281,88 @@ def phase_main_path(G, bp, memory_gb, kernels):
         fail("main_path: the N = 1024 path launched another merge scan")
 
 
+def golden_clades(anc, muts, hi):
+    """snp -> the carriers of its mapped branch, for the SNPs below
+    ``hi`` mapped to one branch."""
+    out, leaves = {}, {}
+    for snp in range(hi):
+        m = muts[snp]
+        if len(m.branch) != 1:
+            continue
+        if m.tree not in leaves:
+            leaves[m.tree] = anc.seq[m.tree].tree.leaf_matrix().astype(bool)
+        out[snp] = frozenset(np.nonzero(leaves[m.tree][int(m.branch[0])])[0])
+    return out
+
+
+def phase_golden(kernels):
+    """BuildTopology of the bundled example on the card: the C++
+    reference's chunk 0 (``tests/golden``, N = 8, its own files read with
+    the port's readers), painted on the card, then one section over its
+    first ``GOLDEN_SNPS`` SNPs through the merge scan with clade rows (B5),
+    against the reference's BuildTopology output ``postbt_0.anc/.mut``
+    with the bounds of ``tests/test_torch_golden.py``: trees before the
+    last ``GOLDEN_MARGIN`` SNPs 0.92 to 1.08 times the reference's, the
+    carriers of each SNP's branch equal on at least 78 % of the SNPs both
+    map (and more than 80 % of the SNPs mapped by both). The launches of
+    each kernel; B5 must have run."""
+    import gzip
+
+    from relate_tpu_torch.core import painting, topology_device
+    from relate_tpu_torch.io import ancmut, chunking
+
+    t_phase = time.time()
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "golden")
+    with tempfile.TemporaryDirectory(prefix="relate_smoke_golden_") as tmp:
+        for name in ("chunk_0.hap", "chunk_0.bp", "chunk_0.dist",
+                     "chunk_0.r", "chunk_0.rpos", "chunk_0.state",
+                     "postbt_0.anc", "postbt_0.mut"):
+            with gzip.open(os.path.join(src, name + ".gz"), "rb") as a, \
+                    open(os.path.join(tmp, name), "wb") as b:
+                shutil.copyfileobj(a, b)
+        ch = chunking.read_reference_chunk(os.path.join(tmp, "chunk_0"))
+        ref_anc = ancmut.read_anc_bin(os.path.join(tmp, "postbt_0.anc"))
+        ref_muts = ancmut.read_mut_short(os.path.join(tmp, "postbt_0.mut"))
+    L, N = ch.G.shape
+    reset_counts()
+    t0 = time.time()
+    painter = painting.Painter(ch.G, ch.r,
+                               painting.PaintingModel(N=N, theta=THETA),
+                               device=DEV)
+    cps = painter.paint_stepping_stones(np.asarray([0, L]))
+    res = topology_device.build_topology_section_device(
+        painter, cps[0], ch.G, ch.rpos, ch.state, ch.bp, 0, GOLDEN_SNPS,
+        seed=1)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_counts()
+    add_launches(kernels, "golden_n8", counts)
+    hi = GOLDEN_SNPS - GOLDEN_MARGIN
+    ours_trees = sum(1 for mt in res.anc.seq if mt.pos < hi)
+    ref_trees = sum(1 for mt in ref_anc.seq if mt.pos < hi)
+    ours = golden_clades(res.anc, res.muts, hi)
+    ref = golden_clades(ref_anc, ref_muts, hi)
+    common = set(ours) & set(ref)
+    agree = sum(1 for snp in common if ours[snp] == ref[snp]) / max(
+        len(common), 1)
+    ratio = ours_trees / max(ref_trees, 1)
+    emit("golden", N=N, L=L, snps=GOLDEN_SNPS, compared_below=hi,
+         trees=ours_trees, reference_trees=ref_trees,
+         tree_ratio=round(ratio, 4), snps_both_map=len(common),
+         clade_agreement=round(agree, 4),
+         bounds="tree ratio 0.92-1.08, clade agreement >= 0.78",
+         build_s=round(wall, 3), launches=counts,
+         seconds=round(time.time() - t_phase, 1))
+    if counts["merge_scan"] <= 0:
+        fail("golden: the merge scan with clade rows (B5) was not launched")
+    if not (0.92 <= ratio <= 1.08 and ref_trees > 10
+            and len(common) > 0.8 * hi and agree >= 0.78):
+        fail(f"golden: BuildTopology outside the reference's bounds: "
+             f"{ours_trees} trees against {ref_trees}, clade agreement "
+             f"{agree:.3f} on {len(common)} SNPs")
+
+
 def ancient_ages(N, n_old=128):
     """Sample ages in generations: the last ``n_old`` haplotypes (two
     haplotypes of one diploid sample sharing an age) spaced evenly from 200
@@ -1564,7 +1664,7 @@ def phase_mesh(G_hap, bp_hap, mem_hap, G, bp, memory_gb, one_card,
             res["reduce_sum"] = reduce_first_and_later(mesh)
         mesh_steps(res, mesh, pm, pools, G_hap, bp_hap, mem_hap, G, bp,
                    memory_gb, one_card, handed, kernels)
-        res["tools"] = mesh_tools(mesh, handed)
+        res["tools"] = mesh_tools(mesh, handed, pools[0])
     finally:
         for p in pools:
             p.close()
@@ -2029,109 +2129,161 @@ def reduce_first_and_later(mesh, reps=10):
     return out
 
 
-def mesh_tools(mesh, prefix):
-    """The CoalescentRate tool through its CLI on ``prefix`` (``run_all``'s
-    N = 2048 output), each mode once on one card (``--device``) and once
-    with ``--devices D``, which runs on the first card: EstimatePopulation-
-    Size with two groups, EstimatePopulationSizeEM (``MESH_EM_ITERS``
-    iteration, two groups) and SampleBranchLengths (``.timeb``,
-    ``MESH_SBL_SAMPLES`` samples, under a one-card ``.coal`` of the same
-    trees). Their files must be equal byte for byte; each run's wall
-    seconds and the card of every ``coalescence_stats`` call and chain
-    part. With more than one card, the two designs that would give the
-    cards work from this process, each beside one card on the same inputs:
-    ``coal_stats_dealt`` and ``sample_parts``."""
-    from relate_tpu_torch.evaluate import coalrate
-    from relate_tpu_torch.pipeline import scripts, tools_cli
+def mesh_tools(mesh, prefix, pool):
+    """The CoalescentRate tool through its CLI, each mode once on one card
+    (``--device``) and once with ``--devices D``: EstimatePopulationSize
+    with two groups on ``prefix`` (``run_all``'s N = 2048 output; the
+    statistics run on the first card), then EstimatePopulationSizeEM
+    (``MESH_EM_ITERS`` iteration, two groups) and SampleBranchLengths
+    (``.timeb``, ``MESH_SBL_SAMPLES`` samples, under a one-card ``.coal``
+    of ``prefix``) on ``parts_store``'s trees, whose chain parts go to a
+    pool of one process a card of the mesh that the tool starts. Their
+    files must be equal byte for byte; each run's wall seconds, the card of
+    every ``coalescence_stats`` call and chain part, the pool's start by
+    worker and each card's peak memory. Then ``mesh_dealing`` on ``prefix``
+    with ``pool`` (the phase's pool of the mesh)."""
+    from relate_tpu_torch.pipeline import tools_cli
     from relate_tpu_torch.utils.trace import STAGES
 
     out = {}
     with tempfile.TemporaryDirectory(prefix="relate_smoke_mesh_tools_") as tmp:
         o = lambda name: os.path.join(tmp, name)  # noqa: E731
-        anc, recs, bp, dist = scripts._load_pair(prefix)[:4]
-        N = anc.N
+        store = o("parts")
+        t0 = time.time()
+        N, trees = parts_store(prefix, store)
+        out["parts_store"] = dict(trees=trees, copies=MESH_STORE_COPIES,
+                                  s=round(time.time() - t0, 3))
         pl = o("two.poplabels")
         write_poplabels(pl, N)
         if tools_cli.main(["CoalescentRate", "--mode",
                            "EstimatePopulationSize", "-i", prefix, "-o",
                            o("prior"), "--device", DEV]) != 0:
             fail("mesh: EstimatePopulationSize for the prior failed")
-        for name, mode, args, files in (
-                ("eps", "EstimatePopulationSize", ["--poplabels", pl],
-                 (".coal", ".pairwise.coal")),
-                ("em", "EstimatePopulationSizeEM",
+        for name, mode, src, args, files in (
+                ("eps", "EstimatePopulationSize", prefix,
+                 ["--poplabels", pl], (".coal", ".pairwise.coal")),
+                ("em", "EstimatePopulationSizeEM", store,
                  ["--poplabels", pl, "--num_iter", str(MESH_EM_ITERS)],
                  (".coal", ".pairwise.coal", ".anc", ".mut")),
-                ("sbl", "SampleBranchLengths",
+                ("sbl", "SampleBranchLengths", store,
                  ["--coal", o("prior.coal"), "--format", "timeb",
                   "--num_samples", str(MESH_SBL_SAMPLES)], (".timeb",))):
-            rec = dict(mode=mode)
+            rec = dict(mode=mode, input="run_all" if src == prefix
+                       else "parts_store")
             for where, dev in (("card", ["--device", DEV]),
                                ("mesh", ["--devices", str(len(mesh))])):
                 del STAGES[:]
                 t0 = synced(mesh)
                 rc = tools_cli.main(["CoalescentRate", "--mode", mode, "-i",
-                                     prefix, "-o", o(f"{where}_{name}"),
+                                     src, "-o", o(f"{where}_{name}"),
                                      *args, *dev])
                 wall = synced(mesh) - t0
                 if rc != 0:
                     fail(f"mesh: {mode} on the {where} returned {rc}")
+                starts = [r["pool_start_s"] for r in STAGES
+                          if "pool_start_s" in r]
+                peaks = {}
+                for r in STAGES:
+                    for card, mb in r.get("dev_peak_mb_by_card", {}).items():
+                        peaks[card] = max(peaks.get(card, 0.0), mb)
                 rec[where] = dict(
                     wall_s=round(wall, 3),
                     coal_stats_on=[m["device"] for r in STAGES
                                    for m in r.get("coal_stats", [])],
                     chain_parts_on=[m["device"] for r in STAGES
-                                    for m in r.get("mcmc", [])
-                                    if "device" in m])
+                                    for m in r.get("mcmc", [])],
+                    chains_a_part=[m["chains"] for r in STAGES
+                                   for m in r.get("mcmc", [])],
+                    pool_start_s=starts[0] if starts else None,
+                    peak_mb_by_card=peaks)
             rec["files_equal"] = {f: same_bytes(o(f"card_{name}{f}"),
                                                 o(f"mesh_{name}{f}"))
                                   for f in files}
+            if name != "eps" and len(mesh) > 1 and (
+                    rec["mesh"]["pool_start_s"] is None
+                    or len(set(rec["mesh"]["chain_parts_on"])) < 2):
+                fail(f"mesh: {mode} --devices gave its chain parts to no "
+                     f"pool of the cards: {rec['mesh']}")
             out[name] = rec
-        if len(mesh) > 1:
-            out.update(mesh_dealing(mesh, prefix, o("prior.coal")))
+        out.update(mesh_dealing(mesh, prefix, o("prior.coal"), pool))
     return out
 
 
-def mesh_dealing(mesh, prefix, prior):
-    """The two designs that would give the cards of ``mesh`` the tools'
-    work from this process, each beside one card on the same inputs (the
-    trees of ``prefix``, the rates of the ``.coal`` file ``prior``):
-    ``coal_stats_dealt`` and ``sample_parts``."""
+def parts_store(prefix, out, copies=MESH_STORE_COPIES):
+    """``prefix``'s ``.anc``/``.mut`` repeated ``copies`` times along the
+    chromosome (each copy's SNPs, trees and positions after the last
+    copy's), written with the port's writers as ``out``.anc/.mut: a tree
+    sequence of several chain parts (``mcmc.chain_batch_cap``). Returns
+    its haplotypes and trees."""
+    from relate_tpu_torch.core.topology import MutationRecord
+    from relate_tpu_torch.core.trees import AncesTree, MarginalTree
+    from relate_tpu_torch.pipeline import scripts
+
+    anc, recs, bp, dist, rsid, alleles = scripts._load_pair(prefix)
+    T, L, shift = len(anc.seq), len(recs), int(bp[-1]) + 1
+    seq, rows = [], []
+    for k in range(copies):
+        for mt in anc.seq:
+            t = mt.tree.copy()
+            t.SNP_begin = t.SNP_begin + k * L
+            t.SNP_end = t.SNP_end + k * L
+            seq.append(MarginalTree(pos=mt.pos + k * L, tree=t))
+        rows += [MutationRecord(tree=m.tree + k * T, branch=list(m.branch),
+                                flipped=m.flipped) for m in recs]
+    scripts._dump_pair(out, AncesTree(N=anc.N, seq=seq,
+                                      sample_ages=anc.sample_ages), rows,
+                       np.concatenate([bp + k * shift
+                                       for k in range(copies)]),
+                       np.tile(dist, copies), list(rsid) * copies,
+                       list(alleles) * copies)
+    return anc.N, len(seq)
+
+
+def mesh_dealing(mesh, prefix, prior, pool):
+    """The ways to give the cards of ``mesh`` the tools' work, each beside
+    one card on the same inputs (the trees of ``prefix``, the rates of the
+    ``.coal`` file ``prior``): ``sample_parts`` through ``pool`` (a
+    ``CardPool`` of the mesh), and with more than one card
+    ``coal_stats_dealt``."""
     from relate_tpu_torch.evaluate import coalrate
     from relate_tpu_torch.pipeline import scripts
 
     anc, recs, bp, dist = scripts._load_pair(prefix)[:4]
     N = anc.N
-    group = np.repeat((np.arange(N // 2) >= N // 4).astype(np.int64), 2)
     _, epochs_p, rates_p = coalrate.read_coal(prior)
-    return dict(
-        coal_stats_dealt=coal_stats_dealt(
+    out = dict(sample_parts=sample_parts(mesh, pool, anc, recs, dist,
+                                         epochs_p, rates_p[:, 0, 0]))
+    if len(mesh) > 1:
+        group = np.repeat((np.arange(N // 2) >= N // 4).astype(np.int64), 2)
+        out["coal_stats_dealt"] = coal_stats_dealt(
             mesh, [mt.tree for mt in anc.seq],
             coalrate.tree_spans(anc, recs, dist), coalrate.default_epochs(),
-            group),
-        sample_parts=sample_parts(mesh, anc, recs, dist, epochs_p,
-                                  rates_p[:, 0, 0]))
+            group)
+    return out
 
 
 def phase_dealing(prefix):
     """``--phases dealing`` (more than one card): ``mesh_dealing`` alone on
     every card of this host, on ``run_all``'s N = 2048 output ``prefix``,
-    under the ``.coal`` of its EstimatePopulationSize on one card; the
-    mesh phase's four-card measurement without the rest of that phase."""
+    under the ``.coal`` of its EstimatePopulationSize on one card, with a
+    pool of the mesh started first; the mesh phase's four-card
+    measurement without the rest of that phase."""
     from relate_tpu_torch.parallel import mesh as pm
+    from relate_tpu_torch.parallel.pool import CardPool
     from relate_tpu_torch.pipeline import tools_cli
 
     t_phase = time.time()
     mesh = pm.default_mesh()
     if len(mesh) < 2:
         fail("dealing: needs more than one card")
-    with tempfile.TemporaryDirectory(prefix="relate_smoke_dealing_") as tmp:
+    with CardPool(mesh, timeout_s=600.0) as pool, \
+            tempfile.TemporaryDirectory(prefix="relate_smoke_dealing_") as tmp:
         prior = os.path.join(tmp, "prior")
         if tools_cli.main(["CoalescentRate", "--mode",
                            "EstimatePopulationSize", "-i", prefix, "-o",
                            prior, "--device", DEV]) != 0:
             fail("dealing: EstimatePopulationSize for the prior failed")
-        res = mesh_dealing(mesh, prefix, prior + ".coal")
+        res = mesh_dealing(mesh, prefix, prior + ".coal", pool)
     emit("dealing", mesh=[str(d) for d in mesh], **res,
          seconds=round(time.time() - t_phase, 1))
 
@@ -2211,22 +2363,27 @@ def coal_stats_dealt(mesh, trees, spans, epochs, group,
                     for w in ("one_thread", "thread_a_card")})
 
 
-def sample_parts(mesh, anc, recs, dist, epochs, rates, seed=5):
-    """``sample_branch_lengths`` on D parts of ``chain_batch_cap`` chains
-    (the trees of ``anc`` repeated), one sample of ``PARTS_PROPOSALS``
-    proposals, three ways: the library on the first card (what
-    ``mesh=`` does), the parts dealt over the cards in turn from this
-    thread, part p on card p, and from a host thread a card (each calling
-    the library on its card with its part's seed). The draws must be
-    equal; each way's wall seconds."""
+def sample_parts(mesh, pool, anc, recs, dist, epochs, rates, seed=5):
+    """``sample_branch_lengths`` on ``SAMPLE_PARTS`` parts of
+    ``chain_batch_cap`` chains (the trees of ``anc`` repeated), one sample
+    of ``PARTS_PROPOSALS`` proposals, each way on the same inputs: the
+    library on the first card, the library with ``pool`` (a ``CardPool``
+    of the mesh that has run InferBranchLengths' chains; one worker on
+    ``cuda:0`` on a one-card host), with more than one card twice, its
+    workers' first piecewise prior (cold) and then warm, and
+    with more than one card the parts dealt over the cards in turn from
+    this thread, part p on card p mod D, each calling the library on its
+    card with its part's seed. The draws must be equal; each way's wall
+    seconds and the seconds of each part where it ran, and the warm pool's
+    over one card's."""
     from relate_tpu_torch.core import mcmc
     from relate_tpu_torch.core.trees import AncesTree
     from relate_tpu_torch.evaluate import sampling
-    from relate_tpu_torch.parallel import mesh as pm
+    from relate_tpu_torch.utils.trace import STAGES, stage
 
     D, T0 = len(mesh), len(anc.seq)
     cap = mcmc.chain_batch_cap(anc.seq[0].tree.num_nodes)
-    seq = [anc.seq[i % T0] for i in range(D * cap)]
+    seq = [anc.seq[i % T0] for i in range(SAMPLE_PARTS * cap)]
     kw = dict(num_samples=1, num_proposals=PARTS_PROPOSALS)
 
     def part(k, dev):
@@ -2234,24 +2391,39 @@ def sample_parts(mesh, anc, recs, dist, epochs, rates, seed=5):
             AncesTree(N=anc.N, seq=seq[k * cap: (k + 1) * cap],
                       sample_ages=anc.sample_ages), recs, dist, 1.25e-8,
             epochs, rates, seed=seed + 7 * (k * cap + 1), device=dev, **kw)
-    ways = {
-        "one_card": lambda: sampling.sample_branch_lengths(
+
+    def library(**where):
+        return sampling.sample_branch_lengths(
             AncesTree(N=anc.N, seq=seq, sample_ages=anc.sample_ages), recs,
-            dist, 1.25e-8, epochs, rates, seed=seed, mesh=mesh, **kw),
-        "one_thread": lambda: np.concatenate(
-            [part(k, d) for k, d in enumerate(mesh)], axis=1),
-        "thread_a_card": lambda: np.concatenate(
-            pm.per_card(mesh, part), axis=1)}
-    got, secs = {}, {}
+            dist, 1.25e-8, epochs, rates, seed=seed, **where, **kw)
+    ways = {"one_card": lambda: library(device=mesh.first)}
+    if D > 1:
+        ways["pool_cold"] = lambda: library(pool=pool)
+    ways["pool_warm"] = lambda: library(pool=pool)
+    if D > 1:
+        ways["one_thread"] = lambda: np.concatenate(
+            [part(k, mesh[k % D]) for k in range(SAMPLE_PARTS)], axis=1)
+    got, secs, on, part_s = {}, {}, {}, {}
     for w, fn in ways.items():
-        t0 = synced(mesh)
-        got[w] = fn()
-        secs[w] = round(synced(mesh) - t0, 3)
+        with stage(f"sample_parts_{w}", verbose=False, devices=mesh):
+            t0 = synced(mesh)
+            got[w] = fn()
+            secs[w] = round(synced(mesh) - t0, 3)
+        on[w] = [m["device"] for m in STAGES[-1].get("mcmc", [])]
+        part_s[w] = [m["wall_s"] for m in STAGES[-1].get("mcmc", [])]
         if not np.array_equal(got[w], got["one_card"]):
             fail(f"mesh: sample_branch_lengths' parts ({w}) differ from "
                  "one card's")
-    return dict(parts=D, chains_a_part=cap, nodes=anc.seq[0].tree.num_nodes,
-                proposals_a_sample=PARTS_PROPOSALS, s=secs, equal=True)
+    if len(on["pool_warm"]) != SAMPLE_PARTS or on["one_card"] != \
+            [str(mesh.first)] * SAMPLE_PARTS:
+        fail(f"mesh: sample_branch_lengths' parts ran elsewhere: {on}")
+    return dict(parts=SAMPLE_PARTS, chains_a_part=cap,
+                nodes=anc.seq[0].tree.num_nodes, workers=[
+                    str(d) for d in pool.mesh],
+                proposals_a_sample=PARTS_PROPOSALS, s=secs, parts_on=on,
+                part_s=part_s,
+                pool_warm_over_one_card=round(
+                    secs["pool_warm"] / secs["one_card"], 3), equal=True)
 
 
 def phase_hosts(G, bp, kernels):
@@ -3859,7 +4031,8 @@ def phase_cpu_vs_card():
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="kernels,main_path,run_all,coalescent_rate,"
+                    default="kernels,main_path,golden,run_all,"
+                            "coalescent_rate,"
                             "selection_mutation_rate,mesh,hosts,interchange,"
                             "run_all_n4096,"
                             "run_all_ancient,anc_unknown,"
@@ -3907,6 +4080,9 @@ def main():
         torch.cuda.empty_cache()
     if "main_path" in phases:
         phase_main_path(*panels[N_HAP], kernels)
+    if "golden" in phases:
+        phase_golden(kernels)
+        torch.cuda.empty_cache()
     # run_all's N = 2048 output is the input of the coalescent_rate and
     # selection_mutation_rate phases
     hand = tempfile.TemporaryDirectory(prefix="relate_smoke_coal_")

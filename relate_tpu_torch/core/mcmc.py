@@ -46,11 +46,12 @@ What differs from the JAX module, on purpose:
 - ``run_mcmc(mesh=)`` runs the whole batch on the mesh's first card (the
   JAX package cuts it over the devices): the chains are bound by the host's
   launches, and a batch cut over four H100s, a host thread a card, took
-  10.5 to 13.6 times one card's time (PERF.md §5). Several cards serve whole
-  sections from a process each (``pipeline.relate.infer_branch_lengths``
-  with a ``parallel.pool.CardPool``). ``Draws(rows=)`` still lets a block
-  of a batch draw as the whole batch would (``parallel.mesh.
-  multichip_step``).
+  10.5 to 13.6 times one card's time (PERF.md §5). Several cards serve
+  whole parts from a process each: ``run_mcmc(pool=)`` gives its parts
+  above ``max_batch`` to a ``parallel.pool.CardPool`` (``chain_part``), and
+  ``pipeline.relate.infer_branch_lengths`` whole sections. ``Draws(rows=)``
+  still lets a block of a batch draw as the whole batch would
+  (``parallel.mesh.multichip_step``).
 
 Deliberate deviations from the reference, shared with the JAX module
 (distribution-level): the acceptance ratio of ``UpdateOneEvent`` includes
@@ -70,12 +71,14 @@ iteration.
 """
 from __future__ import annotations
 
+import time
 from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..parallel.mesh import device_and_mesh
+from ..parallel.pool import HERE
 from ..utils.devmem import resolve_device
 from ..utils.trace import note
 from .trees import Tree
@@ -1334,7 +1337,7 @@ def run_mcmc(trees: List[Tree], dist: np.ndarray, L: int,
              group_R: Optional[np.ndarray] = None,
              memberships: Optional[np.ndarray] = None,
              max_rounds: int = 2000, max_batch: Optional[int] = None,
-             device=None, mesh=None) -> np.ndarray:
+             device=None, mesh=None, pool=None) -> np.ndarray:
     """Estimate branch lengths for a batch of trees on ``device`` (None:
     the CUDA card).
 
@@ -1346,37 +1349,74 @@ def run_mcmc(trees: List[Tree], dist: np.ndarray, L: int,
     and memberships the (N,) group index of each haplotype
     (MCMCCoalRatesForRelate); ``rates`` is then not used. ``max_batch``
     bounds the chains advanced together (default ``chain_batch_cap``);
-    larger batches run in parts with their own seeds. ``mesh``
+    larger batches run in parts with their own seeds, ``seed + 7 * (s + 1)``
+    for the part that starts at tree s. ``mesh``
     (``parallel.mesh.Mesh``, the JAX function's argument): every part runs
     on the mesh's first card, which ``device`` may only repeat; cutting a
     part over four H100s, a host thread a card, took 10.5 to 13.6 times
-    one card's time (PERF.md §5).
-    Each part adds one dict (chains, nodes, rounds, chains converged) under
-    ``mcmc`` to the record of the ``utils.trace`` stage it runs in. Every call makes its generators from ``seed`` and
-    shares none, so calls on several threads give what they give alone.
+    one card's time (PERF.md §5). With a ``pool`` (a
+    ``parallel.pool.CardPool``) every part goes to its workers, one process
+    a card (``chain_part``); a part keeps its seed wherever it runs, so the
+    lengths are those of one device. This function never starts a pool.
+    Each part adds one dict (chains, nodes, rounds, chains converged, the
+    device it ran on, its seconds) under ``mcmc`` to the record of the
+    ``utils.trace`` stage it runs in. Every call makes its generators from
+    ``seed`` and shares none, so calls on several threads give what they
+    give alone.
     Returns branch lengths (B, M) in generations, float64."""
     if (group_R is None) != (memberships is None):
         raise ValueError("group_R and memberships go together")
-    device, _ = device_and_mesh(device, mesh)
+    device, _ = device_and_mesh(
+        device, pool.mesh if pool is not None and mesh is None else mesh)
+    B = len(trees)
     if max_batch is None:
         max_batch = chain_batch_cap(trees[0].num_nodes)
-    if len(trees) > max_batch:
-        outs = []
-        for s in range(0, len(trees), max_batch):
-            outs.append(run_mcmc(
-                trees[s: s + max_batch], dist, L, Ne=Ne, mu=mu,
-                seed=seed + 7 * (s + 1), epochs=epochs, rates=rates,
-                sample_ages=sample_ages, group_R=group_R,
-                memberships=memberships, max_rounds=max_rounds,
-                max_batch=max_batch, device=device))
-        return np.concatenate(outs, axis=0)
-    kw = dict(Ne=Ne, mu=mu, seed=seed, epochs=epochs, rates=rates,
+    starts = range(0, B, max_batch)
+    seeds = [seed + 7 * (s + 1) for s in starts] if B > max_batch else [seed]
+    kw = dict(Ne=Ne, mu=mu, epochs=epochs, rates=rates,
               sample_ages=sample_ages, group_R=group_R,
               memberships=memberships, max_rounds=max_rounds)
-    B = len(trees)
-    bl, rounds, conv = _run_chains(trees, dist, L, device=device, **kw)
-    note("mcmc", dict(chains=B, nodes=trees[0].num_nodes, rounds=rounds,
-                      converged=conv))
+    jobs = [(chain_rows(trees[s: s + max_batch]), dist, L, sd, kw)
+            for s, sd in zip(starts, seeds)]
+    if pool is not None:
+        pool.note_start()
+        outs = pool.map(chain_part, [job + (HERE,) for job in jobs])
+    else:
+        outs = [chain_part(*job, device) for job in jobs]
+    return np.concatenate(outs, axis=0)
+
+
+# the arrays of a tree that the chains read (``chain_static``,
+# ``branch_mut_rates``, ``_pseudo_order``)
+CHAIN_FIELDS = ("parent", "child_left", "child_right", "num_events",
+                "SNP_begin", "SNP_end")
+
+
+def chain_rows(trees: List[Tree]) -> dict:
+    """The arrays of ``trees`` that the chains read, each stacked to
+    (B, M): what a chain part sends to a pool worker (no branch lengths)."""
+    return {f: np.stack([getattr(t, f) for t in trees]) for f in CHAIN_FIELDS}
+
+
+def trees_of_rows(rows: dict) -> List[Tree]:
+    """The trees of ``chain_rows`` (zero branch lengths)."""
+    return [Tree(**{f: rows[f][b] for f in CHAIN_FIELDS})
+            for b in range(len(rows["parent"]))]
+
+
+def chain_part(rows: dict, dist: np.ndarray, L: int, seed: int, kw: dict,
+               device) -> np.ndarray:
+    """One part of ``run_mcmc``'s chains on ``device``, the trees given as
+    ``chain_rows``: run in the caller or as a ``parallel.pool.CardPool``
+    task. ``kw``: the prior and ``max_rounds`` (``_run_chains``). Notes the
+    part under ``mcmc``; returns its (B, M) branch lengths."""
+    t0 = time.time()
+    trees = trees_of_rows(rows)
+    bl, rounds, conv = _run_chains(trees, dist, L, seed=seed, device=device,
+                                   **kw)
+    note("mcmc", dict(chains=len(trees), nodes=trees[0].num_nodes,
+                      rounds=rounds, converged=conv, device=str(device),
+                      wall_s=round(time.time() - t0, 3)))
     return bl
 
 

@@ -41,6 +41,7 @@ from ..core import mcmc
 from ..core.topology import MutationRecord
 from ..core.trees import AncesTree, topological_order
 from ..parallel.mesh import device_and_mesh
+from ..parallel.pool import CardPool
 from ..utils.devmem import batch_rows, resolve_device
 from ..utils.trace import note, stage
 
@@ -373,10 +374,10 @@ def estimate_popsize_em(anc: AncesTree, muts: List[MutationRecord],
                         epochs: Optional[np.ndarray] = None,
                         num_iter: int = 10, seed: int = 1,
                         group_of_hap: Optional[np.ndarray] = None,
-                        verbose: bool = False, device=None, mesh=None):
+                        verbose: bool = False, device=None, mesh=None,
+                        pool: Optional[CardPool] = None):
     """Joint branch-length / coalescence-rate EM on ``device`` (None: the
-    CUDA card); ``mesh`` (the tools' ``--devices``) runs on its first card,
-    as ``coalescence_stats`` and ``sampling.sample_branch_lengths`` do.
+    CUDA card).
 
     Mirrors EstimatePopulationSize.sh's loop: per-epoch rates from the
     current branch lengths (CoalRateForTree + Dump fill), then ONE
@@ -385,36 +386,54 @@ def estimate_popsize_em(anc: AncesTree, muts: List[MutationRecord],
     mean, so the age spread (and hence the next rate estimate) is
     unbiased. Mutates ``anc`` in place (trees carry the last draw); each
     iteration is the ``utils.trace`` stage ``em_iter<i>``. Returns (epochs,
-    pairwise rates (E, G, G), whole-sample filled rates)."""
+    pairwise rates (E, G, G), whole-sample filled rates).
+
+    The draws' chain parts (``sampling.sample_branch_lengths``) go to the
+    workers of ``pool`` (``parallel.pool.CardPool``), one process a card;
+    with a ``mesh`` of more than one device and trees of at least two
+    parts, to one pool of the mesh for the whole EM, started as the call
+    begins (its start overlaps the first ``coalescence_stats``) and closed
+    as it ends. Each iteration sends the trees as they stand then. The
+    statistics run on the first card: their batches gained nothing on more
+    cards (PERF.md §5). The rates and draws are one device's bit for bit."""
     from . import sampling
 
-    device, _ = device_and_mesh(device, mesh)
+    device, mesh = device_and_mesh(
+        device, pool.mesh if pool is not None and mesh is None else mesh)
     if epochs is None:
         epochs = default_epochs(years_per_gen)
-    spans = tree_spans(anc, muts, dist)
     trees = [mt.tree for mt in anc.seq]
+    own = None
+    if pool is None and mesh is not None and len(mesh) > 1 \
+            and num_iter > 0 \
+            and len(trees) > mcmc.chain_batch_cap(trees[0].num_nodes):
+        pool = own = CardPool(mesh)
+    try:
+        spans = tree_spans(anc, muts, dist)
+        counts, opp = coalescence_stats(trees, spans, epochs, device=device)
+        coal = filled_rates(counts, opp)
+        for it in range(num_iter):
+            if verbose:
+                pos = coal[coal > 0]
+                ne = 0.5 / pos.mean() if len(pos) else float("nan")
+                print(f"[em] iter {it}: mean Ne ~ {ne:.0f}")
+            if not (coal > 0).any():
+                break
+            with stage(f"em_iter{it}", verbose=False):
+                draws = sampling.sample_branch_lengths(
+                    anc, muts, dist, mu, epochs, coal, num_samples=1,
+                    seed=seed + it, device=device, pool=pool)
+                for i, mt in enumerate(anc.seq):
+                    mt.tree.branch_length = draws[0, i]
+                counts, opp = coalescence_stats(trees, spans, epochs,
+                                                device=device)
+                coal = filled_rates(counts, opp)
 
-    counts, opp = coalescence_stats(trees, spans, epochs, device=device)
-    coal = filled_rates(counts, opp)
-    for it in range(num_iter):
-        if verbose:
-            pos = coal[coal > 0]
-            ne = 0.5 / pos.mean() if len(pos) else float("nan")
-            print(f"[em] iter {it}: mean Ne ~ {ne:.0f}")
-        if not (coal > 0).any():
-            break
-        with stage(f"em_iter{it}", verbose=False):
-            draws = sampling.sample_branch_lengths(
-                anc, muts, dist, mu, epochs, coal, num_samples=1,
-                seed=seed + it, device=device)
-            for i, mt in enumerate(anc.seq):
-                mt.tree.branch_length = draws[0, i]
-            counts, opp = coalescence_stats(trees, spans, epochs,
-                                            device=device)
-            coal = filled_rates(counts, opp)
-
-    counts_g, opp_g = coalescence_stats(trees, spans, epochs, group_of_hap,
-                                        device=device)
+        counts_g, opp_g = coalescence_stats(trees, spans, epochs,
+                                            group_of_hap, device=device)
+    finally:
+        if own is not None:
+            own.close()
     rates = finalize_rates(counts_g, opp_g)
     return epochs, rates, coal
 

@@ -8,12 +8,15 @@ a .coal prior; SampleBranchLengths (:409-1107) draws posterior samples every
 converged run, writing per-sample anc/mut, newick, or the binary .timeb
 format.
 
-All trees sample in lockstep (the chains of ``core/mcmc.py`` on the card);
-a sample is one download of the chains' node ages.
+All trees of a part sample in lockstep (the chains of ``core/mcmc.py`` on
+the card); a sample is one download of the chains' node ages. Parts of
+``mcmc.chain_batch_cap`` trees run one after another on one card, or each
+in a process of its own on a card of a mesh (``parallel.pool.CardPool``).
 """
 from __future__ import annotations
 
 import struct
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -23,6 +26,7 @@ from ..core import mcmc
 from ..core.topology import MutationRecord
 from ..core.trees import AncesTree
 from ..parallel.mesh import device_and_mesh
+from ..parallel.pool import HERE, CardPool
 from ..utils.trace import note
 
 
@@ -42,9 +46,11 @@ def reestimate_branch_lengths(anc: AncesTree, muts: List[MutationRecord],
                               seed: int = 1,
                               group_rates: Optional[np.ndarray] = None,
                               memberships: Optional[np.ndarray] = None,
-                              device=None):
+                              device=None, pool: Optional[CardPool] = None):
     """Re-run the branch-length MCMC under a .coal prior, in place, on
-    ``device`` (None: the CUDA card).
+    ``device`` (None: the CUDA card), or with its parts above
+    ``mcmc.chain_batch_cap`` on the workers of ``pool`` (``mcmc.run_mcmc
+    (pool=)``).
 
     With ``group_rates`` (E, G, G) and per-haplotype ``memberships``, the
     prior uses pairwise group coalescence rates
@@ -61,7 +67,7 @@ def reestimate_branch_lengths(anc: AncesTree, muts: List[MutationRecord],
                        Ne=avg_ne, mu=mu, seed=seed,
                        epochs=e_norm, rates=r_norm,
                        group_R=group_R, memberships=memberships,
-                       device=device)
+                       device=device, pool=pool)
     for i, mt in enumerate(anc.seq):
         mt.tree.branch_length = bl[i]
     return anc
@@ -73,47 +79,89 @@ def sample_branch_lengths(anc: AncesTree, muts: List[MutationRecord],
                           num_samples: int = 100,
                           num_proposals: Optional[int] = None,
                           seed: int = 1, device=None,
-                          mesh=None) -> np.ndarray:
+                          mesh=None, pool: Optional[CardPool] = None
+                          ) -> np.ndarray:
     """Posterior samples of branch lengths for every tree, on ``device``
     (None: the CUDA card).
 
     The chains run to convergence under the piecewise prior (the
     reference's init=1 converged run), then each sample is ``num_proposals``
     proposals more without accumulation, and one download of the node ages.
-    Batches above ``mcmc.chain_batch_cap`` run in parts with their own
-    seeds. Each part adds one dict (chains, nodes, rounds, converged,
-    device) under ``mcmc`` to the record of the ``utils.trace`` stage it
-    runs in.
+    The trees run in parts of ``mcmc.chain_batch_cap`` chains, the part
+    that starts at tree s with the seed ``seed + 7 * (s + 1)`` (one part:
+    ``seed``), whatever runs them (``sample_part``). Each part adds one dict
+    (chains, nodes, rounds, converged, device, seconds) under ``mcmc`` to
+    the record of the ``utils.trace`` stage it runs in.
 
-    ``mesh`` (a ``parallel.mesh.Mesh``, the tools' ``--devices``) runs on
-    its first card. A part's chains are launch-bound on the host, so no
-    way of using more cards from this process was faster: ``run_mcmc
-    (mesh=)``, which cuts one batch over the cards, was 11.1–13.6 times
-    slower than one card, and four whole parts of 256 chains at N = 2048
-    took 5.878 s on one card, 6.399 s dealt to four cards from one thread
-    and 33.149 s from a thread a card (NVIDIA H100 80GB HBM3, 700 W;
-    ``chip_smoke.py --phases dealing``, ``sample_parts``). A process a
-    card for the chain parts is ROADMAP item 4b-iii.
+    With a ``pool`` (``parallel.pool.CardPool``) every part goes to its
+    workers, one process a card, in part order; with a ``mesh`` (a
+    ``parallel.mesh.Mesh``, the tools' ``--devices``) of more than one
+    device and at least two parts, a pool of the mesh's own for this call.
+    Otherwise the parts run here on the first card and no process starts.
+    The chains are launch-bound on the host, so more cards from one process
+    were no faster (four parts of 256 chains at N = 2048 took 5.878 s on
+    one card, 6.399 s dealt to four cards from one thread and 33.149 s from
+    a thread a card; NVIDIA H100 80GB HBM3, 700 W, PERF.md §5). A part is
+    never cut over cards (that would change its draws), so the samples are
+    one device's bit for bit. A part sends its trees' rows (24 bytes a
+    node: 25 MB a part of 256 trees at N = 2048) and a worker returns its
+    float32 node ages; the float64 lengths are formed here, with the
+    arithmetic of one device and half the bytes through the pipe. On four
+    H100s four such parts took 2.064 s through a warm pool against 3.565 s
+    on one card, each part 0.77–1.09 s in its worker (PERF.md §5).
     Returns (num_samples, num_trees, 2N-1) branch lengths in generations."""
-    device, _ = device_and_mesh(device, mesh)
+    device, mesh = device_and_mesh(
+        device, pool.mesh if pool is not None and mesh is None else mesh)
     trees = [mt.tree for mt in anc.seq]
     B = len(trees)
     N = trees[0].N
     M = trees[0].num_nodes
-    L = len(muts)
-    cap = mcmc.chain_batch_cap(M)
-    if B > cap:
-        outs = []
-        for s in range(0, B, cap):
-            sub = AncesTree(N=anc.N, seq=anc.seq[s: s + cap],
-                            sample_ages=anc.sample_ages)
-            outs.append(sample_branch_lengths(
-                sub, muts, dist, mu, epochs, rates,
-                num_samples=num_samples, num_proposals=num_proposals,
-                seed=seed + 7 * (s + 1), device=device))
-        return np.concatenate(outs, axis=1)
     if num_proposals is None:
         num_proposals = 1000 * int(max(N / 10.0, 10.0))
+    cap = mcmc.chain_batch_cap(M)
+    starts = range(0, B, cap)
+    seeds = [seed + 7 * (s + 1) for s in starts] if B > cap else [seed]
+    if pool is None and mesh is not None and len(mesh) > 1 and B > cap:
+        with CardPool(mesh) as own:
+            return sample_branch_lengths(
+                anc, muts, dist, mu, epochs, rates, num_samples=num_samples,
+                num_proposals=num_proposals, seed=seed, pool=own)
+    jobs = [(mcmc.chain_rows(trees[s: s + cap]), dist, len(muts), mu,
+             epochs, rates, num_samples, num_proposals, sd)
+            for s, sd in zip(starts, seeds)]
+    if pool is not None:
+        pool.note_start()
+        ages = pool.map(sample_part, [job + (HERE,) for job in jobs])
+    else:
+        ages = [sample_part(*job, device) for job in jobs]
+    avg_ne = _normalized_prior(epochs, rates)[0]
+    out = np.empty((num_samples, B, M), dtype=np.float64)
+    for s, job, coords32 in zip(starts, jobs, ages):
+        parent = job[0]["parent"].astype(np.int64)
+        p = np.maximum(parent, 0)
+        for k in range(num_samples):
+            coords = coords32[k].astype(np.float64)
+            bl = np.where(parent >= 0, avg_ne * (np.take_along_axis(
+                coords, p, axis=1) - coords), 0.0)
+            out[k, s: s + len(parent)] = np.maximum(bl, 0.0)
+    return out
+
+
+def sample_part(rows: dict, dist: np.ndarray, L: int, mu: float,
+                epochs: np.ndarray, rates: np.ndarray, num_samples: int,
+                num_proposals: int, seed: int, device) -> np.ndarray:
+    """The chains of one part of ``sample_branch_lengths`` on ``device``,
+    the trees given as ``mcmc.chain_rows``: run in the caller or as a
+    ``parallel.pool.CardPool`` task. Everything it reads comes in its
+    arguments (a stand-in set in the caller never reaches a worker).
+    Notes the part's chains, rounds, converged chains, device and seconds
+    under ``mcmc``. Returns the (num_samples, B, M) float32 node ages
+    (units of the average Ne) of every sample."""
+    t0 = time.time()
+    trees = mcmc.trees_of_rows(rows)
+    B = len(trees)
+    N = trees[0].N
+    M = trees[0].num_nodes
     avg_ne, r_norm, e_norm = _normalized_prior(epochs, rates)
     delta = int(max(N / 10.0, 10.0))
 
@@ -126,22 +174,18 @@ def sample_branch_lengths(anc: AncesTree, muts: List[MutationRecord],
     # SampleBranchLengths -> EstimateBranchLengths init pass)
     state, rounds, conv = mcmc.run_to_convergence(
         st, state, draws, 50 * delta, max(delta, 128), 2000, True)
-    note("mcmc", dict(chains=B, nodes=M, rounds=rounds,
-                      converged=int(conv.sum().item()), device=str(device)))
 
     # num_proposals is a proposal budget in the reference's units
     iters = max(8, int(np.ceil(num_proposals
                                / mcmc.proposals_per_iteration(N, M))))
     aux = mcmc.sweep_aux(st)
-    parent = st.parent.cpu().numpy()
-    p = np.maximum(parent, 0)
-    out = np.empty((num_samples, B, M), dtype=np.float64)
+    out = np.empty((num_samples, B, M), dtype=np.float32)
     for s in range(num_samples):
         state = mcmc.run(st, state, draws, iters, True, False, aux=aux)
-        coords = state.coords.cpu().numpy().astype(np.float64)
-        bl = np.where(parent >= 0, avg_ne * (np.take_along_axis(
-            coords, p, axis=1) - coords), 0.0)
-        out[s] = np.maximum(bl, 0.0)
+        out[s] = state.coords.cpu().numpy()
+    note("mcmc", dict(chains=B, nodes=M, rounds=rounds,
+                      converged=int(conv.sum().item()), device=str(device),
+                      wall_s=round(time.time() - t0, 3)))
     return out
 
 

@@ -173,6 +173,13 @@ def write_anc_tree_line(f: TextIO, mt: MarginalTree):
     f.write(" ".join(parts) + " \n")
 
 
+def read_anc_shape(path: str):
+    """(haplotypes, trees) of a text .anc, from its two header lines."""
+    with smart_open(path) as f:
+        N = int(f.readline().split()[1])
+        return N, int(f.readline().split()[1])
+
+
 def read_anc_text(path: str) -> AncesTree:
     with smart_open(path) as f:
         header = f.readline().split()

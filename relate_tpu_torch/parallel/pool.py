@@ -177,6 +177,13 @@ class CardPool:
                 self._ready_at[k] = msg[1]
             return [round(t - self._t0, 3) for t in self._ready_at]
 
+    def note_start(self) -> None:
+        """Put ``start_s()`` under ``pool_start_s`` in the stage record open
+        on this thread (``utils.trace``), unless it has one already."""
+        rec = trace.open_record()
+        if rec is not None and "pool_start_s" not in rec:
+            rec["pool_start_s"] = self.start_s()
+
     def map(self, fn: Callable, jobs: Sequence[tuple],
             order: Optional[Sequence[int]] = None) -> list:
         """``fn(*job)`` for every job, each on the first free worker, the

@@ -61,7 +61,7 @@ from ..io.chunking import ArtifactStore, MERGE_DISCARD
 from ..parallel.mesh import device_and_mesh, per_card
 from ..parallel.pool import HERE, CardPool
 from ..utils.devmem import resolve_device
-from ..utils.trace import open_record, stage, summary
+from ..utils.trace import stage, summary
 from .postprocess import post_process
 
 # from this many windows on, FindEquivalentBranches streams a chunk window by
@@ -421,9 +421,7 @@ def infer_branch_lengths(store: ArtifactStore, c: int, Ne: float = 3e4,
         return seed + 7919 * (c + 1) + w
 
     if pool is not None:
-        rec = open_record()
-        if rec is not None:
-            rec["pool_start_s"] = pool.start_s()
+        pool.note_start()
         # FindEquivalentBranches has written every trees_<w>.anc by now (its
         # writes end before it returns); each is then written by one worker
         bounds = np.append(ch.windows.boundaries[:W], ch.L)

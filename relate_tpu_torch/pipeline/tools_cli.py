@@ -49,12 +49,13 @@ CUDA card; ``--device cpu`` asks for the host. ``--devices N`` runs
 CoalescentRate's EstimatePopulationSize (also with ``--poplabels``),
 EstimatePopulationSizeEM and SampleBranchLengths on the first N cards of
 the host (``parallel.mesh.default_mesh``, which raises if fewer are
-visible), for parity with the JAX package's flag: the work runs on the
-first of them, since more cards driven from one process were no faster
-(``evaluate.sampling.sample_branch_lengths``; a process a card is ROADMAP
-item 4b-iii), and the files are those of one card. It does not go with
-``--device`` nor with another tool or mode. ``Relate --mode All --devices
-N`` is ``pipeline/cli.py``'s.
+visible): the chain parts of EstimatePopulationSizeEM (its draws and its
+final re-estimate) and of SampleBranchLengths go to a pool of one process
+a card (``parallel.pool.CardPool``) where there are two parts or more, and
+the coalescence statistics run on the first card, as EstimatePopulationSize
+does, since more cards driven from one process were no faster. The files
+are those of one card. It does not go with ``--device`` nor with another
+tool or mode. ``Relate --mode All --devices N`` is ``pipeline/cli.py``'s.
 """
 from __future__ import annotations
 
@@ -121,8 +122,8 @@ def coalescent_rate(args):
     from ..utils.devmem import resolve_device
     from ..parallel import mesh as pm
     from . import scripts
-    device = pm.default_mesh(args.devices).first if args.devices \
-        else resolve_device(args.device)
+    mesh = pm.default_mesh(args.devices) if args.devices else None
+    device = mesh.first if mesh is not None else resolve_device(args.device)
     epochs = coalrate.epochs_from_bins(*args.bins, args.years_per_gen) \
         if args.bins else coalrate.default_epochs(args.years_per_gen)
     if args.mode == "EstimatePopulationSize":
@@ -176,13 +177,13 @@ def coalescent_rate(args):
             args.input, args.output, args.coal, mu=args.mutation_rate,
             num_samples=args.num_samples, first_bp=args.first_bp,
             last_bp=args.last_bp, fmt=args.format, seed=args.seed,
-            device=device)
+            device=device, mesh=mesh)
     elif args.mode == "EstimatePopulationSizeEM":
         scripts.estimate_population_size(
             args.input, args.output, mu=args.mutation_rate,
             years_per_gen=args.years_per_gen, poplabels_path=args.poplabels,
             bins=args.bins, num_iter=args.num_iter, seed=args.seed,
-            device=device)
+            device=device, mesh=mesh)
     else:
         raise SystemExit(f"unknown mode {args.mode!r}; CoalescentRate takes "
                          + ", ".join(COALESCENT_RATE_MODES))
@@ -621,7 +622,8 @@ def build_parser():
     p.add_argument("--devices", type=int, default=0,
                    help="ask for N CUDA cards (CoalescentRate --mode "
                         + ", ".join(MESH_MODES) + "); raises if fewer "
-                        "are visible, runs on the first; 0: one device")
+                        "are visible; the chain parts go to a process a "
+                        "card, the rest runs on the first; 0: one device")
     p.add_argument("--device", default=None,
                    help="torch device; default: the CUDA card (an error if "
                         "there is none). 'cpu' runs on the host.")

@@ -72,18 +72,31 @@ def test_every_module_imports_without_jax():
 def test_pool_workers_import_no_jax():
     """A ``CardPool`` worker (spawned: a fresh interpreter) imports the
     port and torch and no JAX, though this test process has imported the
-    JAX package; on a ``"cpu"`` entry it runs one thread."""
+    JAX package, also once it has taken in each task the port gives a pool
+    (its module imported as the task is unpickled); on a ``"cpu"`` entry
+    it runs one thread."""
+    import pickle
+
     import relate_tpu  # noqa: F401 - in this process, not in the workers
+    from relate_tpu_torch.core.mcmc import chain_part
+    from relate_tpu_torch.evaluate.sampling import sample_part
     from relate_tpu_torch.parallel.pool import CardPool
+    from relate_tpu_torch.pipeline.relate import section_branch_lengths
+    tasks = (chain_part, sample_part, section_branch_lengths)
     probe = ("sorted(m for m in __import__('sys').modules if m.split('.')[0]"
              " in ('jax', 'jaxlib', 'relate_tpu', 'triton',"
              " 'relate_tpu_torch', 'torch'))")
     with CardPool(["cpu"] * 2, timeout_s=300) as pool:
         seen = pool.map(eval, [(probe,), (probe,)], order=[1, 0])
         threads = pool.map(eval, [("__import__('torch').get_num_threads()",)])
+        got = pool.map(pickle.loads, [(pickle.dumps(t),) for t in tasks])
+        seen += pool.map(eval, [(probe,), (probe,)])
+    assert tuple(got) == tasks
     for mods in seen:
         tops = {m.split(".")[0] for m in mods}
         assert tops == {"relate_tpu_torch", "torch"}, tops
+    assert {"relate_tpu_torch.core.mcmc", "relate_tpu_torch.evaluate.sampling",
+            "relate_tpu_torch.pipeline.relate"} <= set(seen[-1] + seen[-2])
     assert threads == [1]
 
 

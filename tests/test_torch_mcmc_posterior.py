@@ -81,7 +81,8 @@ def test_run_mcmc_agrees_with_jax(use_vp):
     assert np.isfinite(got).all() and (got >= 0).all()
     assert (got[:, M - 1] == 0).all() and (got[:, :M - 1] > 0).mean() > 0.95
     assert stats == [dict(chains=16, nodes=M, rounds=stats[0]["rounds"],
-                          converged=16)]
+                          converged=16, device="cpu",
+                          wall_s=stats[0]["wall_s"])]
     rel = np.abs(got.sum(axis=1) - want.sum(axis=1)) / want.sum(axis=1)
     assert np.median(rel) < 0.25, np.median(rel)
     assert rel.max() < 0.9, rel.max()

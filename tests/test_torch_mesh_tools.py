@@ -6,17 +6,24 @@ one device and against the JAX package's mesh.
 On this host the port's meshes are repeated ``"cpu"`` entries (2, 3 and 8
 shards), the JAX package's its 8 virtual CPU devices (``tests/conftest.py``);
 the trees are the reference's final ``golden.anc/.mut`` (N = 8).
-The port's tools run a mesh on its first device, so the statistics, the
-draws, the EM's rates and the files equal one device's exactly, whatever
-the batches and parts; against the JAX package's mesh path, which sums
-each shard in float32, the statistics agree at the tolerance of
-``test_torch_coalrate.py`` for its float32 path (rtol 1e-5, atol 1e-3). Where the
-tools call ``sample_branch_lengths`` with the reference's default budget
-of proposals a sample (10,000 at N = 8, about 10 s a call on this host),
-the tests give it 300 (``fewer_proposals``): the chains are real, only
-shorter.
+The port's tools run the statistics of a mesh on its first device and
+give the chain parts of a mesh of several devices (two parts or more) to a
+pool of one spawned process a device (``parallel.pool.CardPool``; here a
+``"cpu"`` worker each, which runs one thread as this process does), so the
+statistics, the draws, the EM's rates and the files equal one device's
+exactly, whatever the batches and parts; one part, or one device, starts
+no process. Against the JAX package's mesh path, which sums each shard in
+float32, the statistics agree at the tolerance of ``test_torch_coalrate.py``
+for its float32 path (rtol 1e-5, atol 1e-3). Where the tools call
+``sample_branch_lengths`` with the reference's default budget of
+proposals a sample (10,000 at N = 8, about 10 s a call on this host), the
+tests give it 300 (``fewer_proposals``, which sets it in this process: the
+part's budget goes to the workers in its arguments): the chains are real,
+only shorter.
 """
 import filecmp
+import multiprocessing
+import os
 
 import jax
 import numpy as np
@@ -35,6 +42,7 @@ from relate_tpu_torch.parallel import mesh as tmesh
 from relate_tpu_torch.pipeline import scripts as tscripts
 from relate_tpu_torch.pipeline import tools_cli as tcli
 from relate_tpu_torch.utils import trace
+from torch_standins import recording_pools
 
 torch.set_num_threads(1)
 
@@ -152,6 +160,23 @@ def _sampling_inputs(pairs, T):
     return sub, recs, dist, epochs, rates
 
 
+def _no_children():
+    for p in multiprocessing.active_children():
+        p.join(5.0)
+    return not multiprocessing.active_children()
+
+
+def _worker_pids(pools, shards):
+    """The pids of the one pool made, of ``shards`` workers, which served
+    every ``map``; none of them is this process."""
+    assert [len(p.mesh) for p in pools] == [shards]
+    pids = {m[1] for m in pools[0].maps}
+    assert len(pids) == 1
+    (pids,) = pids
+    assert len(set(pids)) == shards and os.getpid() not in pids
+    return pids
+
+
 @pytest.mark.parametrize("shards,T,cap,parts", [
     (3, 16, 6, 3),        # 16 trees do not divide 3 shards: 6, 6, 4
     (2, 16, 5, 4),        # more parts than cards: 5, 5, 5, 1
@@ -160,35 +185,37 @@ def _sampling_inputs(pairs, T):
 ], ids=["3x16", "2x16", "8x10", "2x10_one_part"])
 def test_sample_branch_lengths_on_a_mesh_equals_one_device(
         pairs, monkeypatch, shards, T, cap, parts):
+    """The parts on a pool of the mesh (one process a shard), the draws
+    one device's; one part runs here and starts no process."""
     anc, recs, dist, epochs, rates = _sampling_inputs(pairs, T)
     if cap is not None:
         monkeypatch.setattr(tmcmc, "chain_batch_cap", lambda M: cap)
     kw = dict(num_samples=2, num_proposals=300, seed=4)
     one = ts.sample_branch_lengths(anc, recs, dist, 1.25e-8, epochs, rates,
                                    device="cpu", **kw)
-    calls = []
-    inner = ts.sample_branch_lengths
-
-    def record(*a, **k):
-        calls.append(k["device"])
-        return inner(*a, **k)
+    pools = recording_pools(monkeypatch, ts)
     with trace.stage("sample", verbose=False):
-        monkeypatch.setattr(ts, "sample_branch_lengths", record)
-        got = inner(anc, recs, dist, 1.25e-8, epochs, rates,
-                    mesh=cpu_mesh(shards), **kw)
+        got = ts.sample_branch_lengths(anc, recs, dist, 1.25e-8, epochs,
+                                       rates, mesh=cpu_mesh(shards), **kw)
     assert got.shape == one.shape == (2, T, 2 * anc.N - 1)
     assert np.abs(got - one).max() == 0.0
-    assert calls == ([torch.device("cpu")] * parts if parts > 1 else [])
     notes = trace.STAGES[-1]["mcmc"]
     assert [m["device"] for m in notes] == ["cpu"] * parts
     assert sum(m["chains"] for m in notes) == T
+    if parts > 1:
+        _worker_pids(pools, shards)
+        assert [m[0] for m in pools[0].maps] == [parts]
+    else:
+        assert pools == []
+    assert _no_children()
 
 
 def test_estimate_popsize_em_on_a_mesh_equals_one_device(
         pairs, monkeypatch, fewer_proposals):
-    """Two iterations, the chains in two parts, three shards, two groups
-    at the end: equal rates and draws."""
+    """Two iterations, the chains in two parts on one pool of three
+    workers, two groups at the end: equal rates and draws."""
     monkeypatch.setattr(tmcmc, "chain_batch_cap", lambda M: 8)
+    pools = recording_pools(monkeypatch, tc, ts)
     out = {}
     for name, kw in (("one", dict(device="cpu")),
                      ("mesh", dict(mesh=cpu_mesh(3)))):
@@ -202,14 +229,20 @@ def test_estimate_popsize_em_on_a_mesh_equals_one_device(
     for a, b in zip(out["one"], out["mesh"]):
         assert np.array_equal(a, b, equal_nan=True)
     assert np.isfinite(out["one"][2]).all() and out["one"][2].max() > 0
+    _worker_pids(pools, 3)
+    assert [m[0] for m in pools[0].maps] == [2, 2]
+    assert _no_children()
 
 
 def test_estimate_population_size_script_on_a_mesh(inputs, tmp_path,
                                                    monkeypatch,
                                                    fewer_proposals):
     """``scripts.estimate_population_size(mesh=)`` with two groups: the
-    files of one device, byte for byte."""
+    files of one device, byte for byte; one pool of three workers for the
+    EM's draws (108 trees after the filter: 3 parts) and the final
+    re-estimate (164 trees: 4 parts)."""
     monkeypatch.setattr(tmcmc, "chain_batch_cap", lambda M: 48)
+    pools = recording_pools(monkeypatch, tscripts, tc, ts)
     for name, kw in (("one", dict(device="cpu")),
                      ("mesh", dict(mesh=cpu_mesh(3)))):
         tscripts.estimate_population_size(
@@ -219,6 +252,9 @@ def test_estimate_population_size_script_on_a_mesh(inputs, tmp_path,
     for ext in (".coal", ".pairwise.coal", ".anc", ".mut"):
         assert filecmp.cmp(tmp_path / f"one{ext}", tmp_path / f"mesh{ext}",
                            shallow=False), ext
+    _worker_pids(pools, 3)
+    assert [m[0] for m in pools[0].maps] == [3, 4]
+    assert _no_children()
 
 
 def test_tools_cli_devices_on_a_cpu_mesh(inputs, tmp_path, monkeypatch,
@@ -226,9 +262,10 @@ def test_tools_cli_devices_on_a_cpu_mesh(inputs, tmp_path, monkeypatch,
     """``--devices N`` for EstimatePopulationSize (two groups and
     ``--poplabels hap``), EstimatePopulationSizeEM and SampleBranchLengths,
     the first N cards stood in for by N host shards: the files of
-    ``--device cpu``. Without the stand-in it raises on a host with fewer
-    cards (one, mocked); it does not go with ``--device`` nor with another
-    tool or mode."""
+    ``--device cpu``, the chain parts of the last two on a pool of N
+    workers (EstimatePopulationSize starts none). Without the stand-in it
+    raises on a host with fewer cards (one, mocked); it does not go with
+    ``--device`` nor with another tool or mode."""
     i, pl = str(inputs / "in"), str(inputs / "p.poplabels")
     with monkeypatch.context() as m:
         m.setattr(torch.cuda, "device_count", lambda: 1)
@@ -248,18 +285,20 @@ def test_tools_cli_devices_on_a_cpu_mesh(inputs, tmp_path, monkeypatch,
     monkeypatch.setattr(tmesh, "default_mesh",
                         lambda n: made.append(n) or cpu_mesh(n))
     monkeypatch.setattr(tmcmc, "chain_batch_cap", lambda M: 48)
+    pools = recording_pools(monkeypatch, tscripts, tc, ts)
     coal = str(tmp_path / "one_eps.coal")
-    for out, mode, args, files in (
+    for out, mode, args, files, jobs in (
             ("eps", "EstimatePopulationSize", ["--poplabels", pl],
-             [".coal", ".pairwise.coal"]),
+             [".coal", ".pairwise.coal"], None),
             ("hap", "EstimatePopulationSize", ["--poplabels", "hap"],
-             [".coal", ".pairwise.coal"]),
+             [".coal", ".pairwise.coal"], None),
             ("em", "EstimatePopulationSizeEM",
              ["--poplabels", pl, "--num_iter", "1"],
-             [".coal", ".pairwise.coal", ".anc", ".mut"]),
+             [".coal", ".pairwise.coal", ".anc", ".mut"], [3, 4]),
             ("sbl", "SampleBranchLengths",
              ["--coal", coal, "--format", "timeb", "--num_samples", "2"],
-             [".timeb"])):
+             [".timeb"], [4])):
+        del pools[:]
         for name, dev in (("one", ["--device", "cpu"]),
                           ("mesh", ["--devices", "3"])):
             assert tcli.main(["CoalescentRate", "--mode", mode, "-i", i,
@@ -269,4 +308,10 @@ def test_tools_cli_devices_on_a_cpu_mesh(inputs, tmp_path, monkeypatch,
             assert filecmp.cmp(tmp_path / f"one_{out}{ext}",
                                tmp_path / f"mesh_{out}{ext}",
                                shallow=False), (mode, ext)
+        if jobs is None:
+            assert pools == []
+        else:
+            _worker_pids(pools, 3)
+            assert [m[0] for m in pools[0].maps] == jobs, mode
+        assert _no_children()
     assert made == [3, 3, 3, 3]

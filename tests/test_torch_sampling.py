@@ -210,6 +210,7 @@ def test_reestimate_and_prior_normalisation_equal_jax(monkeypatch):
                                  device="cpu")
     port = dict(seen["port"])
     assert port.pop("device") == "cpu"
+    assert port.pop("pool") is None
     assert port.keys() == seen["jax"].keys()
     for k, v in port.items():
         assert np.array_equal(v, seen["jax"][k]), k

@@ -172,6 +172,7 @@ def _same_calls(seen):
     assert len(seen["jax"]) == len(seen["port"]) > 0
     for (ja, jk), (ta, tk) in zip(seen["jax"], seen["port"]):
         assert str(tk.pop("device")) == "cpu"
+        assert tk.pop("mesh", None) is None and tk.pop("pool", None) is None
         assert jk.pop("mesh", None) is None
         assert len(ja) == len(ta) and jk.keys() == tk.keys()
         for x, y in zip(ja, ta):
