@@ -80,7 +80,7 @@ import torch
 from ..parallel.mesh import device_and_mesh
 from ..parallel.pool import HERE
 from ..utils.devmem import resolve_device
-from ..utils.trace import note
+from ..utils.trace import count, note, span
 from .trees import Tree
 
 P2 = 0.7  # UpdateOneEvent share of proposals
@@ -1124,15 +1124,19 @@ def run(st: ChainStatic, s: ChainState, draws: Draws, nsteps: int,
         use_vp: bool, accumulate: bool, active=None,
         aux: Optional[SweepAux] = None,
         use_ages: bool = False) -> ChainState:
-    """``nsteps`` iterations with the draws of ``draws``. The pairwise
-    prior's iterations, one ``UpdateOneEvent`` step each, run through
-    ``PairRunner``."""
+    """``nsteps`` iterations with the draws of ``draws``, each a
+    ``chains.iteration`` span, counted under ``chains.iterations``
+    (``utils.trace``). The pairwise prior's iterations, one
+    ``UpdateOneEvent`` step each, run through ``PairRunner`` in blocks
+    (CUDA graphs on a card), neither spanned nor counted."""
     B, M = s.coords.shape
     if aux is None:
         aux = sweep_aux(st)
     for i in range(nsteps):
-        s = iteration(st, aux, s, i, draws.iteration(B, M), use_vp,
-                      accumulate, active, use_ages)
+        with span("chains.iteration"):
+            s = iteration(st, aux, s, i, draws.iteration(B, M), use_vp,
+                          accumulate, active, use_ages)
+    count("chains.iterations", nsteps)
     return s
 
 

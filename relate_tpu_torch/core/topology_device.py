@@ -40,7 +40,7 @@ from .topology import MutationRecord, SectionResult
 from .treebuilder import thresholds, tree_from_merges
 from .trees import AncesTree, MarginalTree
 from ..ops.merge_scan import merge_scan
-from ..utils.trace import note
+from ..utils.trace import count, note, span
 
 KB = 64        # SNPs mapped against the current tree per block
 _BIG = 1e9
@@ -192,10 +192,6 @@ def build_topology_section_device(painter: Painter, cp: Checkpoint,
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    mat0 = assembler.get_matrix(paint, dstate, start,
-                                is_first_or_last=(start == 0
-                                                  or start == L - 1))
-
     # per-SNP row state, as the per-SNP loop would carry it: carriers of
     # every SNP but the section's first advance their row and refresh
     # rpos_prev (anc_builder.cpp:487-495)
@@ -245,10 +241,14 @@ def build_topology_section_device(painter: Painter, cp: Checkpoint,
         return merges, torch.cat([eye, clades], dim=0)
 
     # first tree: plain build from the start-SNP matrix
-    first_merges, leafmat = new_tree(mat0.contiguous(),
-                                     torch.zeros_like(mat0), False,
-                                     merge_seeds[0])
-    csize = leafmat.sum(dim=1)
+    with span("topology.first_tree", dev):
+        mat0 = assembler.get_matrix(paint, dstate, start,
+                                    is_first_or_last=(start == 0
+                                                      or start == L - 1))
+        first_merges, leafmat = new_tree(mat0.contiguous(),
+                                         torch.zeros_like(mat0), False,
+                                         merge_seeds[0])
+        csize = leafmat.sum(dim=1)
     events = torch.zeros(M, dtype=torch.float32, device=dev)
     num_tree = 1
 
@@ -264,17 +264,21 @@ def build_topology_section_device(painter: Painter, cp: Checkpoint,
         p = b0
         while p < b1:
             # map SNPs p..b1-1 against the current tree
-            cf = car_f[p:b1]
-            tc = tc_all[p:b1]
-            mp = _map_on_tree(leafmat, csize, cf, tc, N, M, thr_map)
-            add_ev = ((mp.im <= 2) & (mp.branch >= 0)
-                      & (((mp.branch == M - 1) & (tc == N))
-                         | state_dev[p:b1]))
-            do_rebuild = (mp.im > 1) | force_dev[p:b1]
-            if p == 0:
-                do_rebuild[0] = False           # the section's first SNP
-            host = torch.stack([mp.im, mp.branch, mp.flipped.to(torch.int64),
-                                do_rebuild.to(torch.int64)]).cpu().numpy()
+            with span("topology.map", dev):
+                cf = car_f[p:b1]
+                tc = tc_all[p:b1]
+                mp = _map_on_tree(leafmat, csize, cf, tc, N, M, thr_map)
+                add_ev = ((mp.im <= 2) & (mp.branch >= 0)
+                          & (((mp.branch == M - 1) & (tc == N))
+                             | state_dev[p:b1]))
+                do_rebuild = (mp.im > 1) | force_dev[p:b1]
+                if p == 0:
+                    do_rebuild[0] = False       # the section's first SNP
+                h = torch.stack([mp.im, mp.branch, mp.flipped.to(torch.int64),
+                                 do_rebuild.to(torch.int64)])
+                with span("topology.readback", dev):
+                    host = h.cpu().numpy()
+                count("topology.readbacks")
             hits = np.nonzero(host[3])[0]
             q = p + int(hits[0]) if len(hits) else b1    # first rebuild SNP
             n_emit = min(q + 1, b1) - p       # q itself adds its event too
@@ -294,25 +298,29 @@ def build_topology_section_device(painter: Painter, cp: Checkpoint,
             cfq = car_f[q]
             im, branch = int(host[0, k]), int(host[1, k])
             force_q = bool(force[q])
-            mat = assemble(q)
-            mat = mat + val * cfq[:, None] * (1.0 - cfq[None, :])
-            member = leafmat[N:]
-            dcf = val * (member.t() @ (1.0 - member))
-            merges, new_leafmat = new_tree(mat.contiguous(), dcf, use_cf,
-                                           merge_seeds[q + 1])
-            csize2 = new_leafmat.sum(dim=1)
-            mp2 = _map_on_tree(new_leafmat, csize2, cfq[None, :],
-                               tc_all[q:q + 1], N, M, thr_map)
-            h2 = torch.stack([mp2.im[0], mp2.branch[0],
-                              mp2.flipped[0].to(torch.int64),
-                              (mp2.minv[0] >= mp.minv[k]).to(torch.int64)]
-                             ).cpu().numpy()
+            with span("topology.rebuild", dev):
+                mat = assemble(q)
+                mat = mat + val * cfq[:, None] * (1.0 - cfq[None, :])
+                member = leafmat[N:]
+                dcf = val * (member.t() @ (1.0 - member))
+                merges, new_leafmat = new_tree(mat.contiguous(), dcf, use_cf,
+                                               merge_seeds[q + 1])
+                csize2 = new_leafmat.sum(dim=1)
+                mp2 = _map_on_tree(new_leafmat, csize2, cfq[None, :],
+                                   tc_all[q:q + 1], N, M, thr_map)
+                h = torch.stack([mp2.im[0], mp2.branch[0],
+                                 mp2.flipped[0].to(torch.int64),
+                                 (mp2.minv[0] >= mp.minv[k]).to(torch.int64)])
+                with span("topology.readback", dev):
+                    h2 = h.cpu().numpy()
+                count("topology.readbacks")
             im2, b2, fl2 = int(h2[0]), int(h2[1]), bool(h2[2])
             revert = (im2 > 1) and bool(h2[3]) and not force_q
             # the reverted record keeps the candidate tree's flipped flag
             # (anc_builder.cpp:625 compares where it meant to assign)
             fl_arr[q] = fl2
             if revert:
+                count("topology.reverts")
                 im_arr[q], b_arr[q], t_arr[q] = im, branch, num_tree - 1
             else:
                 sflag = bool(state_flag[q])
@@ -338,32 +346,37 @@ def build_topology_section_device(painter: Painter, cp: Checkpoint,
     # final state for the last tree)
     flush_steps = np.nonzero(flush)[0]
     assert len(flush_steps) == num_tree - 1, (len(flush_steps), num_tree)
-    merge_list = [first_merges.cpu().numpy()] + \
-        [m.cpu().numpy() for m in merges_f]
-    event_list = [e.cpu().numpy() for e in events_f] + [events.cpu().numpy()]
+    with span("topology.collect", dev):
+        merge_list = [first_merges.cpu().numpy()] + \
+            [m.cpu().numpy() for m in merges_f]
+        event_list = [e.cpu().numpy() for e in events_f] + \
+            [events.cpu().numpy()]
     pos_list = [start] + [start + int(i) for i in flush_steps]
 
     seq = []
-    for ti in range(num_tree):
-        tr = tree_from_merges(merge_list[ti][:, 0], merge_list[ti][:, 1], N)
-        tr.num_events = event_list[ti].astype(np.float32)
-        tr.SNP_begin[:] = pos_list[ti]
-        tr.SNP_end[:] = (pos_list[ti + 1] if ti + 1 < num_tree else end)
-        seq.append(MarginalTree(pos=int(pos_list[ti]), tree=tr))
+    with span("topology.tree_from_merges"):
+        for ti in range(num_tree):
+            tr = tree_from_merges(merge_list[ti][:, 0], merge_list[ti][:, 1],
+                                  N)
+            tr.num_events = event_list[ti].astype(np.float32)
+            tr.SNP_begin[:] = pos_list[ti]
+            tr.SNP_end[:] = (pos_list[ti + 1] if ti + 1 < num_tree else end)
+            seq.append(MarginalTree(pos=int(pos_list[ti]), tree=tr))
     anc = AncesTree(N=N, seq=seq)
     # a reverted candidate was built and is no tree of the section
     note("topology", dict(trees=num_tree, tree_builds=tree_builds))
 
     muts = []
-    for i in range(S):
-        rec = MutationRecord(tree=int(t_arr[i]), flipped=bool(fl_arr[i]))
-        if im_arr[i] <= 2 and b_arr[i] >= 0:
-            rec.branch = [int(b_arr[i])]
-        elif im_arr[i] > 2:
-            tr = anc.seq[rec.tree].tree
-            brs, flp = mapmutation.force_map_mutation(
-                tr, car[i].astype(bool))
-            rec.branch = brs
-            rec.flipped = flp
-        muts.append(rec)
+    with span("topology.force_map"):
+        for i in range(S):
+            rec = MutationRecord(tree=int(t_arr[i]), flipped=bool(fl_arr[i]))
+            if im_arr[i] <= 2 and b_arr[i] >= 0:
+                rec.branch = [int(b_arr[i])]
+            elif im_arr[i] > 2:
+                tr = anc.seq[rec.tree].tree
+                brs, flp = mapmutation.force_map_mutation(
+                    tr, car[i].astype(bool))
+                rec.branch = brs
+                rec.flipped = flp
+            muts.append(rec)
     return SectionResult(anc=anc, muts=muts, start=start, end=end)

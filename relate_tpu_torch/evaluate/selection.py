@@ -160,11 +160,8 @@ def freq_lin_arrays(anc: AncesTree, muts: List[MutationRecord],
                     epochs: np.ndarray, device=None) -> dict:
     """The counts of ``compute_freq_lin`` as arrays, one row a usable SNP in
     SNP order: ``snp`` (S,), ``freq`` and ``lin`` (S, E) oldest first,
-    ``daf``, ``lin_when_half``, ``lin_when_freq2`` (S,), all int64. Adds
-    one dict (trees, snps, wall_s) under ``freq_lin`` to the record of the
-    ``utils.trace`` stage it runs in."""
+    ``daf``, ``lin_when_half``, ``lin_when_freq2`` (S,), all int64."""
     device = resolve_device(device)
-    t0 = time.time()
     E = len(epochs)
     N = anc.N
     times = torch.from_numpy(
@@ -193,8 +190,6 @@ def freq_lin_arrays(anc: AncesTree, muts: List[MutationRecord],
         a = np.zeros((0, 2 * E + 3), dtype=np.int64)
     order = np.argsort(snp, kind="stable")
     snp, a = snp[order], a[order]
-    note("freq_lin", dict(trees=len(by_tree), snps=len(snp),
-                          wall_s=round(time.time() - t0, 4)))
     return {"snp": snp, "freq": a[:, :E], "lin": a[:, E: 2 * E],
             "daf": a[:, 2 * E], "lin_when_half": a[:, 2 * E + 1],
             "lin_when_freq2": a[:, 2 * E + 2]}

@@ -27,6 +27,7 @@ import numpy as np
 from ..core.topology import MutationRecord
 from ..core.trees import (AncesTree, MarginalTree, Tree,
                           children_from_parent, children_from_parent_batch)
+from ..utils import trace
 from .haps import smart_open
 
 
@@ -39,13 +40,15 @@ def atomic_write(path: str, mode: str = "w"):
     """Write to a same-directory temp file and ``os.replace`` into place on
     success: a reader polling for ``path`` can never observe a half-written artifact. POSIX
     rename is atomic within a filesystem; NFS renames are atomic on the
-    server, which is exactly the shared-store case."""
+    server, which is exactly the shared-store case. The file's size is
+    counted under ``bytes_written`` (``utils.trace``)."""
     tmp = f"{path}.tmp.{os.getpid()}"
     f = open(tmp, mode)
     try:
         yield f
         f.close()
         os.replace(tmp, path)
+        trace.wrote(path)
     except BaseException:
         f.close()
         try:
@@ -154,11 +157,12 @@ def write_anc_text(path: str, anc: AncesTree,
             np.stack([t.num_events for t in trees]),
             np.stack([t.SNP_begin for t in trees]),
             np.stack([t.SNP_end for t in trees]))
-        return
-    with open(path, "w") as f:
-        f.write(header)
-        for mt in anc.seq:
-            write_anc_tree_line(f, mt)
+    else:
+        with open(path, "w") as f:
+            f.write(header)
+            for mt in anc.seq:
+                write_anc_tree_line(f, mt)
+    trace.wrote(path)
 
 
 def write_anc_tree_line(f: TextIO, mt: MarginalTree):
@@ -327,6 +331,7 @@ def write_mut_final(path: str, rows: List[str], extra_header: str = ""):
         f.write(FINAL_MUT_HEADER + extra_header + "\n")
         for r in rows:
             f.write(r + "\n")
+    trace.wrote(path)
 
 
 def read_mut_final(path: str):

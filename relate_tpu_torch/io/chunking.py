@@ -26,6 +26,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..utils import trace
 from . import haps as haps_io
 
 OVERLAP = 20000             # chunk overlap in SNPs (data.cpp:137)
@@ -215,8 +216,10 @@ class ArtifactStore:
             rsid=np.asarray(data.rsid), ancestral=np.asarray(data.ancestral),
             alternative=np.asarray(data.alternative),
             chrom=np.asarray(data.chrom), bp=data.bp, dist=dist)
+        trace.wrote(self.path("props.npz"))
         if sample_ages is not None:
             np.save(self.path("sample_ages.npy"), sample_ages)
+            trace.wrote(self.path("sample_ages.npy"))
         for c in range(plan.num_chunks):
             s, e = plan.start[c], plan.end[c]
             np.savez_compressed(
@@ -224,6 +227,7 @@ class ArtifactStore:
                 G=G[s:e], bp=data.bp[s:e], dist=dist[s:e], r=r[s:e],
                 rpos=rpos[s:e + 1], state=state[s:e],
                 boundaries=np.asarray(wplans[c].boundaries, dtype=np.int64))
+            trace.wrote(self.path(f"chunk_{c}.npz"))
             os.makedirs(self.path(f"chunk_{c}"), exist_ok=True)
         # plan.json is written LAST and atomically: it doubles as the
         # "make_chunks complete" sentinel, so its existence must imply
@@ -232,6 +236,7 @@ class ArtifactStore:
         with open(tmp, "w") as f:
             json.dump(meta, f)
         os.replace(tmp, self.path("plan.json"))
+        trace.wrote(self.path("plan.json"))
         return plan
 
     # -- access ----------------------------------------------------------
@@ -243,11 +248,14 @@ class ArtifactStore:
         return plan, wplans
 
     def load_chunk(self, c: int) -> ChunkData:
-        z = np.load(self.path(f"chunk_{c}.npz"))
-        wp = WindowPlan(N=int(z["G"].shape[1]), L_chunk=int(z["G"].shape[0]),
-                        boundaries=list(map(int, z["boundaries"])))
-        return ChunkData(chunk_index=c, G=z["G"], bp=z["bp"], dist=z["dist"],
-                         r=z["r"], rpos=z["rpos"], state=z["state"], windows=wp)
+        with trace.span("load_chunk"):
+            z = np.load(self.path(f"chunk_{c}.npz"))
+            wp = WindowPlan(N=int(z["G"].shape[1]),
+                            L_chunk=int(z["G"].shape[0]),
+                            boundaries=list(map(int, z["boundaries"])))
+            return ChunkData(chunk_index=c, G=z["G"], bp=z["bp"],
+                             dist=z["dist"], r=z["r"], rpos=z["rpos"],
+                             state=z["state"], windows=wp)
 
     def load_sample_ages(self, N: int) -> Optional[np.ndarray]:
         p = self.path("sample_ages.npy")

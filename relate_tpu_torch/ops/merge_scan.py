@@ -46,6 +46,7 @@ import ctypes
 
 import torch
 
+from ..utils.trace import count, span
 from . import _build
 
 INF = 3.0e38   # a large finite float32, not infinity (as the JAX kernel)
@@ -158,7 +159,9 @@ def clades_from_merges(cis, cjs, N: int):
 
     Every leaf walks up its chain of ancestors, all leaves at once: one
     round (a gather and a scatter of N elements, one ``any()`` download) per
-    level of the tree, not one launch per merge. The rows are exact 0/1
+    level of the tree, not one launch per merge. Each download is a
+    ``merge_scan.readback`` span and counts under ``merge_scan.readbacks``
+    (``utils.trace``): the first waits for the scan. The rows are exact 0/1
     values, as the sums of disjoint indicator rows are."""
     dev = cis.device
     born = torch.arange(N, 2 * N - 1, device=dev, dtype=torch.int64)
@@ -170,7 +173,10 @@ def clades_from_merges(cis, cjs, N: int):
     anc = parent[:N].clone()
     while True:
         live = anc >= 0
-        if not bool(live.any()):
+        with span("merge_scan.readback", dev):
+            more = bool(live.any())
+        count("merge_scan.readbacks")
+        if not more:
             return C
         C[anc[live] - N, leaf[live]] = 1.0
         anc = torch.where(live, parent[anc.clamp(min=0)], anc)

@@ -19,8 +19,8 @@ a mesh a process of its own:
   device. Results come back pickled, so they should be small;
 - ``map`` hands each task to the first free worker, in the order the
   caller gives, and returns the results in the order of the tasks; what the
-  tasks ``note`` and each worker's peak device memory go into the stage
-  record open on the caller's thread (``utils.trace``);
+  tasks ``note`` and ``count`` and each worker's peak device memory go into
+  the stage record open on the caller's thread (``utils.trace``);
 - a task that raises is raised again in the caller with the worker's
   traceback, and so is a worker that dies or outlasts ``timeout_s``; the
   pool then stops every worker. No task is retried;
@@ -211,8 +211,7 @@ class CardPool:
                 raise
         if rec is not None:
             for n in notes:
-                for key, items in n.items():
-                    rec.setdefault(key, []).extend(items)
+                trace.merge(rec, n)
             for card, mb in peaks.items():
                 trace.peak(rec, card, mb)
         return results

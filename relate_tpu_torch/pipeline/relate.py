@@ -61,7 +61,8 @@ from ..io.chunking import ArtifactStore, MERGE_DISCARD
 from ..parallel.mesh import device_and_mesh, per_card
 from ..parallel.pool import HERE, CardPool
 from ..utils.devmem import resolve_device
-from ..utils.trace import stage, summary
+from ..utils import trace
+from ..utils.trace import span, stage, summary
 from .postprocess import post_process
 
 # from this many windows on, FindEquivalentBranches streams a chunk window by
@@ -80,15 +81,16 @@ def make_chunks(haps_path: str, sample_path: str, map_path: str, outdir: str,
     """Parse the inputs and write the chunk/window plan and chunk arrays.
     ``memory_gb=None`` sizes the windows from the memory of ``device``."""
     device = resolve_device(device)
-    data = hio.read_haps(haps_path, sample_path)
-    gmap = hio.read_map(map_path)
-    dist = hio.read_dist_file(dist_path, data.bp) if dist_path else None
-    store = ArtifactStore(outdir)
-    ages = None
-    if sample_ages_path:
-        ages = hio.read_sample_ages(sample_ages_path, data.N)
-    return store.make_chunks(data, gmap, memory_gb, dist, use_transitions,
-                             ages, device=device)
+    with span("make_chunks"):
+        data = hio.read_haps(haps_path, sample_path)
+        gmap = hio.read_map(map_path)
+        dist = hio.read_dist_file(dist_path, data.bp) if dist_path else None
+        store = ArtifactStore(outdir)
+        ages = None
+        if sample_ages_path:
+            ages = hio.read_sample_ages(sample_ages_path, data.N)
+        return store.make_chunks(data, gmap, memory_gb, dist,
+                                 use_transitions, ages, device=device)
 
 
 def paint(store: ArtifactStore, c: int, theta: float = 0.001,
@@ -106,12 +108,16 @@ def paint(store: ArtifactStore, c: int, theta: float = 0.001,
     r = ch.r * rho_scale
     model = painting.PaintingModel(N=ch.N, theta=theta)
     painter = painting.Painter(ch.G, r, model, device=device, mesh=mesh)
-    cps = painter.paint_stepping_stones(np.asarray(ch.windows.boundaries))
+    with span("paint.sweeps", device):
+        cps = painter.paint_stepping_stones(np.asarray(ch.windows.boundaries))
     os.makedirs(store.path(f"chunk_{c}"), exist_ok=True)
     for w, cp in enumerate(cps):
-        np.savez_compressed(store.path(f"chunk_{c}", f"paint_{w}.npz"),
-                            alpha=cp.alpha, ls_alpha=cp.ls_alpha, bsb=cp.bsb,
-                            beta=cp.beta, ls_beta=cp.ls_beta, bse=cp.bse)
+        path = store.path(f"chunk_{c}", f"paint_{w}.npz")
+        with span("paint.write"):
+            np.savez_compressed(path, alpha=cp.alpha, ls_alpha=cp.ls_alpha,
+                                bsb=cp.bsb, beta=cp.beta, ls_beta=cp.ls_beta,
+                                bse=cp.bse)
+        trace.wrote(path)
     if cache is not None:
         cache[("cps", c)] = cps
 
@@ -177,6 +183,7 @@ def build_topology(store: ArtifactStore, c: int, seed: int = 1,
             return cps_mem[w]
         return load_checkpoint(store, c, w)
 
+    @trace.carry
     def _persist(w, res):
         res.anc.sample_ages = ages
         ancmut.write_anc_bin(store.path(f"chunk_{c}", f"trees_{w}.anc"),
@@ -311,8 +318,8 @@ def find_equivalent_branches(store: ArtifactStore, c: int,
     eqs = branch_association_many_device(all_trees, device=device)
     associate_trees(all_trees, eqs)
     with ThreadPoolExecutor(max_workers=2) as pool:
-        futs = [pool.submit(ancmut.write_anc_bin,
-                            store.path(f"chunk_{c}", f"trees_{w}.anc"),
+        write = trace.carry(ancmut.write_anc_bin)
+        futs = [pool.submit(write, store.path(f"chunk_{c}", f"trees_{w}.anc"),
                             ancs[w]) for w in range(W)]
         for f in futs:
             f.result()
@@ -454,7 +461,7 @@ def infer_branch_lengths(store: ArtifactStore, c: int, Ne: float = 3e4,
             if cache is not None:
                 cache[("anc", c, w)] = anc
             write_futs.append(ex.submit(
-                ancmut.write_anc_bin,
+                trace.carry(ancmut.write_anc_bin),
                 store.path(f"chunk_{c}", f"trees_{w}.anc"), anc))
         for f in write_futs:
             f.result()
