@@ -141,9 +141,10 @@ checkpoint writes, which the default run leaves out;
 plain version at those edge sizes (a short check after an edit of it);
 ``--phases dense_edges`` does the same for the two dense merge scans (B5
 and B6) at N = 2 ... 1000, where most warps and blocks of their cooperative
-grid own no row, and with a negative threshold (the fallback at every step)
-at N = 1024 and N = 2048; ``--phases sweep_edges`` for the full backward
-sweep in both modes (B2) and the two capture sweeps (B3 and B4) on seeded
+grid own no row, at the benchmark cells' widths (N = 1006 for both, 1858
+for B6: rows padded to 16 bytes), and with a negative threshold (the
+fallback at every step) at N = 1024 and N = 2048; ``--phases
+sweep_edges`` for the full backward sweep in both modes (B2) and the two capture sweeps (B3 and B4) on seeded
 synthetic inputs at N = 2, 3, 100, 1000 and 5000 (rows that start off a
 16-byte boundary), at N = 16384 and 25827 (the widest, on few targets),
 with wanted rows -1, 0, D-1, D, Dmax and beyond, targets with D = 2, and
@@ -181,6 +182,8 @@ import torch
 N_HAP = 1024                   # the path of the merge scan with clade rows
 N_LARGE = 2048                 # the run_all path: the large merge scan
 N_ODD = 1576                   # no multiple of 256: the loop tails
+N_KGP = 1006                   # the benchmark's cells' widths (B5, B6): no
+N_HGDP = 1858                  # multiple of 4, rows padded to 16 bytes
 N_INC = 4096                   # the run_all path of the incremental merge scan
 N_INC_SMALL = 512              # the incremental scan's four small cases
 N_INC_ODD = 5008               # no multiple of 128 or of the block sizes
@@ -554,17 +557,66 @@ def dense_against_plain(detail, n, label, d_, dcf_, ucf, thr, thr_cf, seed,
     return k
 
 
+def scan_counts(fn):
+    """(outputs, counters) of one dense scan: ``merge_scan.<counter>`` of
+    the record open at its launch."""
+    from relate_tpu_torch.ops import merge_scan as ms
+    from relate_tpu_torch.utils import trace
+    rec = {}
+    with trace.within(rec):
+        out = fn()
+    torch.cuda.synchronize()
+    ms.read_counts()
+    got = rec.get("counts", {})
+    return out, {k: got.get("merge_scan." + k, 0) for k in ms.COUNTERS}
+
+
+def cell_width(mat, n, large):
+    """B6 (``large``) or B5 at a benchmark cell's width n, on the top-left
+    n x n of a posterior's matrix: the three ``merge_cases`` inputs and the
+    first with a negative threshold (the fallback at every step) against the
+    plain version, exactly; the time a call and a step of the second and of
+    the last; and the kernel's four counters on the second against the CPU
+    model's (``merge_scan_counts``)."""
+    from relate_tpu_torch.ops import merge_scan as ms
+    sub = mat[:n, :n].contiguous()
+    thr, thr_cf, cases = merge_cases(sub, ms.merge_scan)
+    label, d_, dcf_, ucf, seed = cases[0]
+    cases.append(("posterior, negative threshold", d_, dcf_, ucf, seed))
+    fn = ms.merge_scan_large if large else ms.merge_scan
+    detail, out = [], {"N": n}
+    for label, d_, dcf_, ucf, seed in cases:
+        t = -1.0 if label.endswith("negative threshold") else thr
+        dense_against_plain(detail, n, label, d_, dcf_, ucf, t, thr_cf, seed,
+                            large)
+        if label == "posterior+clade_prior":
+            _, got = scan_counts(lambda: fn(d_, dcf_, ucf, t, thr_cf, seed))
+            want = ms.merge_scan_counts(d_.cpu().numpy(), dcf_.cpu().numpy(),
+                                        ucf, t, thr_cf, seed)[2]
+            out.update(counters=got, model_counters=want)
+            if got != want:
+                fail(f"{'merge_scan_large' if large else 'merge_scan'}"
+                     f"[N={n}, {label}]: counters {got}, the model's {want}")
+        if label in ("posterior+clade_prior", "posterior, negative threshold"):
+            ms_k = time_ms(lambda: fn(d_, dcf_, ucf, t, thr_cf, seed), 3)
+            detail[-1].update(ms=ms_k, us_per_step=ms_k * 1e3 / (n - 1))
+    out["cases"] = detail
+    out.update(ms=detail[1]["ms"], us_per_step=detail[1]["us_per_step"])
+    return out
+
+
 def dense_edge_cases(large):
     """B6 (``large``) or B5 at the edges of its cooperative grid: N = 2, 3,
     9, 33 and 100 leave most warps and blocks without a row, N = 1000 a
-    ragged last block (continuous and tie-heavy values, the clade prior off
-    and on, and a negative threshold); and the negative threshold, where no
+    ragged last block, N = 1006 and (B6) 1858 are the cells' widths
+    (continuous and tie-heavy values, the clade prior off and on, and a
+    negative threshold); and the negative threshold, where no
     pair is ever mutual and every step takes the symmetric fallback, at the
     kernel's own main-path width (N = 1024 for B5, 2048 for B6), timed.
     Returns the records."""
     from relate_tpu_torch.ops import merge_scan as ms
     detail = []
-    for n in N_DENSE_EDGES:
+    for n in N_DENSE_EDGES + ((N_KGP, N_HGDP) if large else (N_KGP,)):
         for case in edge_cases(n):
             dense_against_plain(detail, n, *case, large)
     n = N_LARGE if large else N_HAP
@@ -601,7 +653,8 @@ def merge_scan_row(mat):
         2 * N * N * 4 + (N - 1) * N * 4 + 2 * (N - 1) * 4,
         9 * live_pairs, shape=[N, N], cases=detail,
         us_per_step=ms_k * 1e3 / (N - 1), grid=ms.grid_config(N, large=False),
-        live_bytes_ms=live_pairs * 16 / HBM_BYTES_PER_S * 1e3)
+        live_bytes_ms=live_pairs * 16 / HBM_BYTES_PER_S * 1e3,
+        at_n1006=cell_width(mat, N_KGP, large=False))
 
 
 def merge_scan_large_row(mat_large, mat_small):
@@ -673,7 +726,8 @@ def merge_scan_large_row(mat_large, mat_small):
         steps_above_l2=sum((N - t) * (N - t) * 16 > L2_BYTES
                            for t in range(N - 1)),
         live_bytes_ms=live_pairs * 16 / HBM_BYTES_PER_S * 1e3,
-        io_bytes_ms=io_bytes / HBM_BYTES_PER_S * 1e3)
+        io_bytes_ms=io_bytes / HBM_BYTES_PER_S * 1e3,
+        at_n1858=cell_width(mat_large, N_HGDP, large=True))
 
 
 def random_cases(N):

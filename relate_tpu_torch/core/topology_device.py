@@ -39,7 +39,7 @@ from .painting import Checkpoint, Painter
 from .topology import MutationRecord, SectionResult
 from .treebuilder import thresholds, tree_from_merges
 from .trees import AncesTree, MarginalTree
-from ..ops.merge_scan import merge_scan
+from ..ops.merge_scan import merge_scan, read_counts
 from ..utils.trace import count, note, span
 
 KB = 64        # SNPs mapped against the current tree per block
@@ -379,4 +379,6 @@ def build_topology_section_device(painter: Painter, cp: Checkpoint,
                 rec.branch = brs
                 rec.flipped = flp
             muts.append(rec)
+    # every scan of the section has been read back by now: count them
+    read_counts()
     return SectionResult(anc=anc, muts=muts, start=start, end=end)

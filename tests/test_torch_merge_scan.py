@@ -2,6 +2,9 @@
 (interpret mode): merge lists and clade rows must be equal exactly, on the
 route that emits the clade rows and on the large route that rebuilds them
 from the merge lists."""
+import re
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -182,3 +185,123 @@ def test_sizes_above_1024_name_the_missing_kernels(monkeypatch):
     tms.merge_scan(*args)
     assert calls == [1]
     assert tms.launches["merge_scan_inc"] == 0
+
+
+# the near-set capacity built into the dense kernels (``near_cap()`` on a
+# card), read from their source
+_NEAR_CAP = int(re.search(
+    r"constexpr int NEAR_CAP = (\d+);",
+    (Path(tms.__file__).parents[1] / "csrc" / "merge_scan.cu").read_text()
+).group(1))
+
+
+def _genealogy(rng, N):
+    """(N, N) coalescence steps of a random merge order, and its merge
+    lists in the scan's node ids."""
+    members, ids = [[a] for a in range(N)], list(range(N))
+    depth = np.zeros((N, N))
+    cis, cjs = [], []
+    for t in range(N - 1):
+        x, y = sorted(rng.choice(len(members), 2, replace=False))
+        for a in members[x]:
+            depth[a, members[y]] = depth[members[y], a] = t + 1
+        cis.append(ids[x])
+        cjs.append(ids[y])
+        members[x] += members.pop(y)
+        ids[x] = N + t
+        ids.pop(y)
+    return depth, cis, cjs
+
+
+def _model_inputs(kind, N):
+    """(d, dcf, threshold, threshold_cf): distances like a painted panel's
+    (a genealogy's coalescence depths with an asymmetric jitter, Relate's
+    thresholds at theta = 0.001 and the clade prior of another genealogy),
+    tie-heavy integers, or the first with a negative threshold, where no
+    pair is ever mutual."""
+    from relate_tpu_torch.core.treebuilder import thresholds
+    rng = np.random.default_rng(1000 + N)
+    if kind == "ties":
+        d, dcf = _matrices("ties", N, seed=N)
+        return d, dcf, 1e-6, 0.01
+    depth, cis, cjs = _genealogy(rng, N)
+    d = (depth * (20.0 / N) + rng.random((N, N)) * 0.5).astype(np.float32)
+    np.fill_diagonal(d, 0)
+    _, cis, cjs = _genealogy(rng, N)
+    member = tms.clades_from_merges(torch.tensor(cis), torch.tensor(cjs),
+                                    N).numpy()
+    val = -float(np.log(0.001 / 0.999))
+    dcf = (val * (member.T @ (1.0 - member))).astype(np.float32)
+    thr, thr_cf = thresholds(0.001)
+    return d, dcf, (-1.0 if kind == "negative_threshold" else thr), thr_cf
+
+
+@pytest.mark.parametrize("use_cf", [False, True])
+@pytest.mark.parametrize("kind", ["posterior", "ties", "negative_threshold"])
+@pytest.mark.parametrize("N", [2, 3, 9, 33, 100, 258])
+def test_step_state_model_matches_plain(N, kind, use_cf):
+    """The dense kernels' step state (``merge_scan_counts``: minima with
+    their counts, near sets of the kernels' capacity and the rebuild of those
+    that overflow, the fallback on demand) gives the lists of the plain scan,
+    holds the row minima and near sets of a full pass at every step, and
+    counts what the kernels' counters must read; also with near sets of 4,
+    which overflow at every size."""
+    d, dcf, thr, thr_cf = _model_inputs(kind, N)
+    seed = 4242 + N
+    pi, pj = tms.merge_scan_plain(torch.from_numpy(d), torch.from_numpy(dcf),
+                                  use_cf, thr, thr_cf, seed,
+                                  with_clades=False)
+    # after each merge but the last, every live row other than i and j is
+    # updated in place or passed in full
+    in_place = (N - 1) * (N - 2) // 2
+    for cap in (_NEAR_CAP, 4) if N <= 100 else (_NEAR_CAP,):
+        ci, cj, c = tms.merge_scan_counts(d, dcf, use_cf, thr, thr_cf, seed,
+                                          cap=cap, check=True)
+        assert np.array_equal(ci, pi.numpy()) and np.array_equal(cj, pj.numpy())
+        assert set(c) == set(tms.COUNTERS) and c["steps"] == N - 1
+        assert c["row_updates"] <= in_place
+        assert in_place <= c["row_updates"] + c["row_rescans"]
+        if kind == "negative_threshold":
+            assert c["fallback_steps"] == N - 1
+        elif kind == "posterior" and N >= 33:
+            assert c["fallback_steps"] < N // 2
+            # the minima rarely die: most rows are kept in place
+            if cap == _NEAR_CAP:
+                assert c["row_rescans"] < 0.2 * c["row_updates"]
+
+
+def test_counts_land_in_the_record_open_at_the_launch():
+    """``read_counts`` takes the scans whose copy has landed, in launch
+    order, into the stage record that was open when each was launched, and
+    leaves the others waiting."""
+    from relate_tpu_torch.utils import trace
+
+    class Copy:
+        def __init__(self, done):
+            self.done = done
+
+        def query(self):
+            return self.done
+
+    first, second = {}, {}
+    with trace.within(first):
+        a = trace.carry(tms._count_scan)
+    with trace.within(second):
+        b = trace.carry(tms._count_scan)
+    late = Copy(False)
+    tms._PENDING[:] = [(Copy(True), torch.tensor([8, 20, 2, 1]), a),
+                       (late, torch.tensor([8, 20, 0, 0]), b),
+                       (Copy(True), torch.tensor([4, 3, 1, 0]), a)]
+    try:
+        tms.read_counts()
+        assert first["counts"] == {"merge_scan.steps": 12,
+                                   "merge_scan.row_updates": 23,
+                                   "merge_scan.row_rescans": 3,
+                                   "merge_scan.fallback_steps": 1}
+        assert "counts" not in second and len(tms._PENDING) == 1
+        late.done = True
+        tms.read_counts()
+        assert second["counts"]["merge_scan.row_updates"] == 20
+        assert tms._PENDING == []
+    finally:
+        tms._PENDING[:] = []
